@@ -8,7 +8,11 @@ Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
      xlayer_prover_tpu_torch/csrc with nvcc (sm_90a) into build/kernels/;
   2. hold each kernel against its plain PyTorch version on the card, bit
-     for bit, and time both at the main path's shapes;
+     for bit, and time both at the main path's shapes: poseidon_permute
+     on 2^20 states; poseidon_linear_hash at widths 5, 8, 9, 20 and 39
+     (4,096 rows each), at the first tree level (2^20 x 8) and at the cm1
+     leaves (2^21 x 39), the rows it is timed on (edge and non-canonical
+     rows included in all); gl_mul on 2^24 pairs;
   3. prove the fib toy (n_bits=5, 8 queries) on the card and on the CPU:
      the proofs must be byte-equal and verify;
   4. the main path at full size: the zkEVM Binary state machine as its own
@@ -17,7 +21,8 @@ Phases (any failure exits non-zero and prints no result line):
      before phase 2, which times gl_mul at the AIR's LDE shape):
      Setup.build, gen_proof, verify, and a tampered trace that must be
      refused; the launch counts of this phase show that the proof went
-     through both kernels.
+     through poseidon_linear_hash (every Merkle leaf and level) and gl_mul.
+     poseidon_permute is off this path; its row reports its count, 0.
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -34,6 +39,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INT_MUL_PER_CLK_SM = 64            # 32-bit integer multiplies, cc 9.0
 GL_MUL_MULS = 4                    # 32x32->64 partial products/element
 SEED = 20261016                    # kernel inputs of phase 2
+# the kernels that every Setup.build + gen_proof launches
+MAIN_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -61,6 +68,15 @@ def _max_abs_err(got, ref) -> int:
     return max(abs(int(a) - int(b)) for a, b in zip(g, r))
 
 
+def print_ptxas(logs: dict):
+    """The kernels, registers and spills of each library's ptxas log."""
+    for name, log in logs.items():
+        print(f"built {name}:", flush=True)
+        for ln in log.splitlines():
+            if any(k in ln for k in ("entry function", "registers", "spill")):
+                print("  " + ln.strip(), flush=True)
+
+
 def _require(cond: bool, what: str):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -69,7 +85,7 @@ def _require(cond: bool, what: str):
 def poseidon_mul32() -> int:
     """32-bit multiplies of one Poseidon permutation in its fewest-multiply
     form, the sparse partial rounds of ``poseidon_constants.sparse_form``
-    (the kernel runs the dense form).  A product by a constant c costs 0
+    (which the kernels run).  A product by a constant c costs 0
     multiplies (c = 0 or 1), 2 (c < 2^32) or 4 (32x32->64 partial
     products); the x^7 S-box is two squares (3 each) and two products."""
     from xlayer_prover_tpu_torch.ops import poseidon_constants as pc
@@ -126,8 +142,59 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
         "source": "xlayer_prover_tpu_torch/csrc/poseidon_gl.cu",
         "replaces": "xlayer_prover_tpu/ops/pallas_poseidon.py:209",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        "bytes": 192 * n, "ops": poseidon_mul32() * n, "shape": [n, 12]})
+        "bytes": 192 * n, "ops": poseidon_mul32() * n, "shape": [n, 12],
+        "plain_shape": [n, 12]})
     del t
+    torch.cuda.empty_cache()
+
+    # -- poseidon_linear_hash: every width class, then the main path's -----
+    def hash_rows(count, width):
+        r = rng.integers(0, P, size=(count, width), dtype=np.uint64)
+        r[0:len(edges)] = edges[:, None]
+        r[len(edges):len(edges) + 8] = rng.integers(
+            P, (1 << 64) - 1, size=(8, width), dtype=np.uint64,
+            endpoint=True)
+        return gl.from_u64_np(r, cuda)
+
+    err = 0
+    for width in (5, 8, 9, 20, 39):
+        r = hash_rows(4096, width)
+        err = max(err, _max_abs_err(poseidon_gl.linear_hash(r, width),
+                                    poseidon_gl._linear_hash_plain(r, width)))
+    # the main path's shapes, each held on the very rows it is timed on:
+    # the first tree level (2^20 x 8) and the cm1 leaves (2^21 x 39)
+    level = hash_rows(1 << 20, 8)
+    err = max(err, _max_abs_err(poseidon_gl.linear_hash(level, 8),
+                                poseidon_gl._linear_hash_plain(level, 8)))
+    leaves = hash_rows(1 << 21, 39)
+    got = poseidon_gl.linear_hash(leaves, 39)
+    torch.cuda.empty_cache()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = poseidon_gl._linear_hash_plain(leaves, 39)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max(err, _max_abs_err(got, ref))
+    _require(err == 0, "poseidon_linear_hash equals its plain version")
+    del got, ref
+    torch.cuda.empty_cache()
+    ms = _cuda_ms(lambda: poseidon_gl.linear_hash(leaves, 39), 5)
+    level_ms = _cuda_ms(lambda: poseidon_gl.linear_hash(level, 8), 20)
+    print(f"kernel poseidon_linear_hash at [1048576, 8] (first tree level): "
+          f"{level_ms:.4f} ms (bound "
+          f"{poseidon_mul32() * (1 << 20) / int_rate * 1e3:.4f} ms by "
+          f"operations)", flush=True)
+    rows.append({
+        "name": "poseidon_linear_hash", "route": "cuda",
+        "source": "xlayer_prover_tpu_torch/csrc/poseidon_gl.cu",
+        "replaces": "xlayer_prover_tpu/ops/poseidon_gl.py:153",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bytes": (39 + 4) * 8 * (1 << 21),
+        "ops": poseidon_mul32() * 5 * (1 << 21), "shape": [1 << 21, 39],
+        "plain_shape": [1 << 21, 39]})
+    del leaves, level
     torch.cuda.empty_cache()
 
     # -- gl_mul: 2^24 seeded pairs + every edge pair ------------------------
@@ -157,7 +224,7 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
         "replaces": "xlayer_prover_tpu/fields/gl.py:154",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bytes": 24 * n_ext_half_cols, "ops": GL_MUL_MULS * n_ext_half_cols,
-        "shape": [n_ext_half_cols]})
+        "shape": [n_ext_half_cols], "plain_shape": [n_ext_half_cols]})
     del ta, tb
     torch.cuda.empty_cache()
 
@@ -167,8 +234,9 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         r["library_ms"] = None
-        print(f"kernel {r['name']} at {r.pop('shape')}: {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        print(f"kernel {r['name']} at {r['shape']}: {r['ms']:.4f} ms "
+              f"(plain {r['plain_ms']:.3f} ms at {r['plain_shape']}, "
+              f"bound {r['bound_ms']:.4f} ms "
               f"by {r['bound_by']}; int-mul rate {int_rate:.4g}/s)",
               flush=True)
     return rows
@@ -274,10 +342,7 @@ def main() -> int:
     t_all = time.perf_counter()
     print(device.smi("name,power.limit"), flush=True)
     t0 = time.perf_counter()
-    logs = kernels.build_all()
-    for name, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"built {name}: {' | '.join(regs)}", flush=True)
+    print_ptxas(kernels.build_all())
     print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
 
     t0 = time.perf_counter()
@@ -292,9 +357,11 @@ def main() -> int:
     launches = phase_binary(torch, case, trace_s)
     for r in rows:
         r["launches"] = launches[r["name"]]
-        _require(r["launches"] > 0, f"{r['name']} launched on the main path")
+    for name in MAIN_PATH_KERNELS:
+        _require(launches[name] > 0, f"{name} launched on the main path")
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"]
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "plain_shape"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(f"total_s {time.perf_counter() - t_all:.2f}", flush=True)

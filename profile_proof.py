@@ -11,8 +11,11 @@ proves (``binary_sm.seeded_case``: the zkEVM's settings), then:
      first;
   3. a third gen_proof under ``torch.profiler`` (CPU + CUDA activity): the
      device's busy time (sum of kernel and copy durations; one stream, so
-     no overlap) against the wall time gives the idle share, and the
-     kernels are ranked by total device time.
+     no overlap) against the wall time gives the idle share, the kernels
+     are ranked by total device time, and ``split`` sums the device time
+     and launches of the Merkle commitments' kernels and of their
+     scaffolding: the two Poseidon kernels, ``torch.cat`` and the copy
+     kernels that make tensors contiguous (names in SPLIT).
 Prints one JSON line (and writes it to --out if given).  Needs a GPU.
 """
 
@@ -26,6 +29,11 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# split group -> substring of the device kernel's name
+SPLIT = {"poseidon_permute": "poseidon_permute_kernel",
+         "poseidon_linear_hash": "poseidon_linear_hash_kernel",
+         "cat": "CatArrayBatchedCopy",
+         "copies": "direct_copy_kernel"}
 
 
 def main() -> int:
@@ -77,6 +85,7 @@ def main() -> int:
         prof_wall_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     by_name = collections.defaultdict(lambda: [0, 0.0])
+    split = {g: [0, 0.0] for g in SPLIT}
     busy_us = 0.0
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
@@ -86,6 +95,10 @@ def main() -> int:
         entry = by_name[ev.name[:90]]
         entry[0] += 1
         entry[1] += us
+        for g, sub in SPLIT.items():
+            if sub in ev.name:
+                split[g][0] += 1
+                split[g][1] += us
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     report = {
         "card": card, "n_bits": air.n_bits, "trace_s": trace_s,
@@ -100,6 +113,8 @@ def main() -> int:
         "launches": launches,
         "top_device": [{"name": k, "count": v[0], "ms": v[1] / 1e3}
                        for k, v in top],
+        "split": {g: {"count": v[0], "ms": v[1] / 1e3}
+                  for g, v in split.items()},
     }
     line = json.dumps(report)
     if args.out:

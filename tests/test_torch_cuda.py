@@ -14,7 +14,7 @@ import torch
 from xlayer_prover_tpu_torch import kernels
 from xlayer_prover_tpu_torch.fields import gl
 from xlayer_prover_tpu_torch.models.toy import fib
-from xlayer_prover_tpu_torch.ops import poseidon_gl
+from xlayer_prover_tpu_torch.ops import merkle, poseidon_gl
 from xlayer_prover_tpu_torch.stark import prover, verifier
 
 P = gl.P
@@ -65,6 +65,35 @@ def test_poseidon_kernel_matches_plain(gen, cuda_device):
         poseidon_gl.host_permute([int(v) for v in states[7]])
     with pytest.raises(ValueError):
         poseidon_gl.permute(t[:, :8].contiguous())
+
+
+@pytest.mark.parametrize("width", [5, 8, 9, 39])
+def test_linear_hash_kernel_matches_plain(gen, cuda_device, width):
+    rows = gen.integers(0, P, size=(1000, width), dtype=np.uint64)
+    rows[:EDGES.size] = EDGES[:, None]
+    rows[EDGES.size] = [(1 << 64) - 1 - k for k in range(width)]
+    t = gl.from_u64_np(rows, cuda_device)
+    before = kernels.LAUNCHES["poseidon_linear_hash"]
+    got = poseidon_gl.linear_hash(t, width)
+    assert kernels.LAUNCHES["poseidon_linear_hash"] == before + 1
+    assert torch.equal(got, poseidon_gl._linear_hash_plain(t, width))
+    assert [int(v) for v in gl.to_u64_np(got[EDGES.size])] == \
+        poseidon_gl.host_linear_hash([int(v) for v in rows[EDGES.size]])
+    wide = gl.from_u64_np(np.zeros((16, 2 * width), dtype=np.uint64),
+                          cuda_device)
+    with pytest.raises(ValueError):
+        poseidon_gl.linear_hash(wide[:, ::2], width)
+
+
+def test_merkelize_on_cuda_equals_cpu(gen, cuda_device):
+    rows = gen.integers(0, P, size=(1 << 10, 39), dtype=np.uint64)
+    cpu = merkle.merkelize(gl.from_u64_np(rows, "cpu"), 39)
+    before = kernels.LAUNCHES["poseidon_linear_hash"]
+    tree = merkle.merkelize(gl.from_u64_np(rows, cuda_device), 39)
+    assert kernels.LAUNCHES["poseidon_linear_hash"] == before + 11
+    assert np.array_equal(tree.root_np(), cpu.root_np())
+    for lv, clv in zip(tree.levels, cpu.levels):
+        assert np.array_equal(gl.to_u64_np(lv), gl.to_u64_np(clv))
 
 
 def test_fib_proof_on_cuda_equals_cpu(cuda_device):

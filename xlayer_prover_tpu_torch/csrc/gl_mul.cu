@@ -8,10 +8,11 @@
 // uint64 arithmetic, so the port needs this kernel.
 //
 // Bound: memory.  Each element reads 16 bytes and writes 8 (24 bytes
-// against 3.35 TB/s on an H100 SXM); the product is one a*b, one
-// __umul64hi and a branch-free reduction, far below the integer issue
-// rate.  Design: one element per thread in a grid-stride loop, 64-bit
-// loads and stores with neighbouring threads on neighbouring addresses.
+// against 3.35 TB/s on an H100 SXM); the product is 32-bit multiply
+// halves and a reduction in carry chains (gl.cuh), far below the integer
+// issue rate.  Design: one element per thread in a grid-stride loop,
+// 64-bit loads and stores with neighbouring threads on neighbouring
+// addresses.
 #include <cuda_runtime.h>
 #include <stdint.h>
 

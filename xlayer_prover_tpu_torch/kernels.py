@@ -32,14 +32,16 @@ _LIBS = {
                           ctypes.c_int64, _P],
     }),
     "poseidon_gl": ("poseidon_gl.cu", {
-        "poseidon_set_constants": [_P, _P],
+        "poseidon_set_constants": [_P, ctypes.c_int64],
         "poseidon_permute_launch": [_P, _P, ctypes.c_int64, _P],
+        "poseidon_linear_hash_launch": [_P, _P, ctypes.c_int64, ctypes.c_int,
+                                        _P],
     }),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"gl_mul": 0, "poseidon_permute": 0}
+LAUNCHES = {"gl_mul": 0, "poseidon_permute": 0, "poseidon_linear_hash": 0}
 _loaded: dict = {}
 
 
@@ -61,10 +63,13 @@ def lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header (``csrc/*.cuh``)."""
     out = lib_path(name)
     if not os.path.exists(out):
         return True
-    deps = [os.path.join(CSRC, _LIBS[name][0]), os.path.join(CSRC, "gl.cuh")]
+    deps = [os.path.join(CSRC, _LIBS[name][0])] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
     return max(os.path.getmtime(d) for d in deps) > os.path.getmtime(out)
 
 

@@ -2,9 +2,11 @@
 
 Counterpart of ``xlayer_prover_tpu/ops/merkle.py``: leaves are
 ``linear_hash`` digests of (height x width) rows; internal levels pair-hash
-with zero capacity.  Every level is built on the device in one loop; the
-query openings gather their rows and sibling digests on the device and
-pull them to the host once per tree.
+with zero capacity.  A node is the linear hash of the width-8 row
+left || right, so a level of n contiguous digests is ``linear_hash`` of
+its free (n/2, 8) view: on the GPU one ``poseidon_linear_hash`` launch
+for the leaves and one a level.  The query openings gather their rows and
+sibling digests on the device and pull them to the host once per tree.
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ def merkelize(rows, width: int) -> MerkleTree:
     cur = poseidon.linear_hash(rows, width)
     levels = [cur]
     while cur.shape[0] > 1:
-        cur = poseidon.hash_node(cur[0::2], cur[1::2])
+        pairs = cur.view(cur.shape[0] // 2, 2 * poseidon.HASH_SIZE)
+        cur = poseidon.linear_hash(pairs, 2 * poseidon.HASH_SIZE)
         levels.append(cur)
     return MerkleTree(levels=tuple(levels), width=width)
 
