@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (xlayer_prover_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # full run: builds the kernels, proves
-                                     # the 2^20-row Binary SM AIR
+                                     # the 2^20-row Binary SM AIR and the
+                                     # 2^16-row zkEVM composite AIR
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -22,8 +23,21 @@ Phases (any failure exits non-zero and prints no result line):
      Setup.build, gen_proof, verify, and a tampered trace that must be
      refused; the launch counts of this phase show that the proof went
      through poseidon_linear_hash (every Merkle leaf and level) and gl_mul.
-     poseidon_permute is off this path; its row reports its count, 0.
-It prints a ``{"kernels": [...]}`` line and ends with
+     poseidon_permute is off this path; its row reports its count, 0;
+  5. zkevm, the main path of the zkEVM batch proof: the mini-ROM
+     (``models/zkevm/mini_rom.py``) executed by the port's Executor into
+     the composite AIR (Main + Binary, Memory, Arith, PoseidonG,
+     PaddingPG, MemAlign and ArithEC: 412 committed and 181 fixed columns,
+     50 plookups, the Main<->Memory permutation).  (a) At n_bits 13 the
+     card's proof must be byte-equal to the JAX package's, committed as
+     tests/data/zkevm_mini_n13_q4.proof.json.  (b) At n_bits 16 (chunk_bits
+     4, limb_bits 16, 4 queries): Setup.build, gen_proof (launches counted
+     from 0), verify, and a trace with Main's A0 corrupted at row 2 and a
+     wrong public must both be refused.  Before (b), phase 2's kernels are
+     also held bit for bit at (b)'s shapes (the cm1 leaves, 2^17 x 412; an
+     LDE stage, 2^16 x 412).
+It prints a ``{"kernels": [...]}`` line (``launches``: the zkevm path's
+counts; ``launches_by_path`` has phase 4's too) and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -41,6 +55,8 @@ GL_MUL_MULS = 4                    # 32x32->64 partial products/element
 SEED = 20261016                    # kernel inputs of phase 2
 # the kernels that every Setup.build + gen_proof launches
 MAIN_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
+ZKEVM_FIXTURE = os.path.join(REPO, "tests", "data",
+                             "zkevm_mini_n13_q4.proof.json")
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -259,6 +275,20 @@ def phase_fib(torch):
     print("fib: card proof byte-equal to CPU proof, verifies", flush=True)
 
 
+def _refused(prover, verifier, setup, cm1, publics, what: str) -> str:
+    """Prove a bad trace or claim; it must be refused by the prover or the
+    verifier."""
+    try:
+        proof = prover.gen_proof(setup, cm1, publics)
+    except prover.LookupMissingError:
+        return "prover raised LookupMissingError"
+    try:
+        verifier.verify(setup.air, setup.verkey, proof)
+    except verifier.VerifyError as e:
+        return f"verifier raised VerifyError ({e})"
+    raise RuntimeError(f"{what} was accepted")
+
+
 def phase_binary(torch, case, trace_s: float):
     import numpy as np
 
@@ -303,24 +333,131 @@ def phase_binary(torch, case, trace_s: float):
     bad = cm1.copy()
     row = 5 * layout.rows_per_op + 3
     bad[row, layout.witness["c_chunk"].index] ^= np.uint64(1)
-    try:
-        tampered = prover.gen_proof(setup, bad, [])
-    except prover.LookupMissingError:
-        refused = "prover raised LookupMissingError"
-    else:
-        try:
-            verifier.verify(air, setup.verkey, tampered)
-        except verifier.VerifyError as e:
-            refused = f"verifier raised VerifyError ({e})"
-        else:
-            raise RuntimeError("tampered binary trace was accepted")
-    print(f"binary: tampered trace refused: {refused}", flush=True)
+    print("binary: tampered trace refused: "
+          + _refused(prover, verifier, setup, bad, [],
+                     "a tampered binary trace"), flush=True)
     report = {"n_bits": air.n_bits, "rows": air.n, "actions": len(actions),
               "trace_s": trace_s, "setup_s": setup_s, "prove_s": prove_s,
               "rounds_s": timings, "verify_s": verify_s,
               "rows_per_s": air.n / prove_s,
               "peak_bytes": peak, "launches": launches}
     print("phase4 " + json.dumps(report), flush=True)
+    return launches
+
+
+def check_zkevm_shapes(torch, air):
+    """poseidon_linear_hash on the zkevm path's cm1 leaves and gl_mul on one
+    stage of its cm1 LDE, each bit for bit against its plain version."""
+    from xlayer_prover_tpu_torch.fields import gl
+    from xlayer_prover_tpu_torch.ops import poseidon_gl
+
+    cuda = torch.device("cuda")
+    width = air.cm1_width
+    leaves = torch.randint(-(1 << 63), (1 << 63) - 1, (air.n_ext, width),
+                           dtype=torch.int64, device=cuda)
+    err = _max_abs_err(poseidon_gl.linear_hash(leaves, width),
+                       poseidon_gl._linear_hash_plain(leaves, width))
+    _require(err == 0, "poseidon_linear_hash equals its plain version at "
+             "the zkevm cm1 leaves")
+    ms = _cuda_ms(lambda: poseidon_gl.linear_hash(leaves, width), 5)
+    del leaves
+    m = (air.n_ext // 2) * width
+    ta = torch.randint(-(1 << 63), (1 << 63) - 1, (m,), dtype=torch.int64,
+                       device=cuda)
+    tb = torch.randint(-(1 << 63), (1 << 63) - 1, (m,), dtype=torch.int64,
+                       device=cuda)
+    err = _max_abs_err(gl.gl_mul(ta, tb), gl._mul_plain(ta, tb))
+    _require(err == 0, "gl_mul equals its plain version at the zkevm LDE "
+             "stage")
+    mul_ms = _cuda_ms(lambda: gl.gl_mul(ta, tb), 20)
+    del ta, tb
+    torch.cuda.empty_cache()
+    print(f"kernel poseidon_linear_hash at [{air.n_ext}, {width}] (zkevm cm1 "
+          f"leaves): {ms:.4f} ms, bit-equal; gl_mul at [{m}] (zkevm LDE "
+          f"stage): {mul_ms:.4f} ms, bit-equal", flush=True)
+
+
+def phase_zkevm(torch, case16, trace16_s: float):
+    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.models.zkevm import mini_rom
+    from xlayer_prover_tpu_torch.stark import prover, verifier
+
+    # (a) n_bits 13: the card's proof against the JAX package's
+    t0 = time.perf_counter()
+    ex13, res13 = mini_rom.execute(13)
+    trace13_s = time.perf_counter() - t0
+    setup13 = prover.Setup.build(ex13.air, res13.const_np)
+    t0 = time.perf_counter()
+    proof13 = prover.gen_proof(setup13, res13.cm1_np, res13.publics)
+    prove13_s = time.perf_counter() - t0
+    with open(ZKEVM_FIXTURE) as f:
+        _require(proof13.to_json() == f.read(),
+                 "the n_bits 13 zkEVM proof on the card is byte-equal to "
+                 "the JAX package's")
+    _require(verifier.verify(ex13.air, setup13.verkey, proof13),
+             "the n_bits 13 zkEVM proof verifies")
+    print(f"zkevm n_bits=13: trace_s={trace13_s:.3f} prove_s={prove13_s:.3f}"
+          f", byte-equal to {os.path.relpath(ZKEVM_FIXTURE, REPO)}, "
+          f"verifies", flush=True)
+    del setup13, proof13
+
+    # (b) n_bits 16: the main path, launches counted from 0
+    ex, res = case16
+    air = ex.air
+    ctx = res.ctx
+    _require(ctx.done and ctx.counters.steps == 24
+             and (ctx.counters.binary, ctx.counters.arith) == (3, 1),
+             "mini-ROM execution: 24 steps, 3 binary ops, 1 arith")
+    print(f"zkevm: n_bits={air.n_bits} cm1={air.cm1_width} const="
+          f"{air.const_width} cm2={air.cm2_width} cm3={air.cm3_width} "
+          f"q_deg={air.q_deg} plookups={len(air.plookups)} permutations="
+          f"{len(air.permutations)} constraints={len(air.constraints)} "
+          f"ev_map={len(air.ev_map)} fri_steps={air.fri_steps}", flush=True)
+    check_zkevm_shapes(torch, air)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    setup = prover.Setup.build(air, res.const_np)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    timings = {}
+    t0 = time.perf_counter()
+    proof = prover.gen_proof(setup, res.cm1_np, res.publics, timings=timings)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    _require(verifier.verify(air, setup.verkey, proof),
+             "the n_bits 16 zkEVM proof verifies")
+    verify_s = time.perf_counter() - t0
+    _require(len(proof.evals) == len(air.ev_map)
+             and len(proof.fri_steps) == len(air.fri_steps)
+             and len(proof.final_pol) == 1 << air.fri_steps[-1]
+             and proof.publics == [int(p) for p in res.publics],
+             "the zkEVM proof has the AIR's shape and the run's publics")
+
+    bad = res.cm1_np.copy()
+    col = ex.layout.main.witness["A0"].index
+    bad[2, col] = (int(bad[2, col]) + 1) % prover.P
+    print("zkevm: corrupted A0 at row 2 refused: "
+          + _refused(prover, verifier, setup, bad, res.publics,
+                     "a trace with a corrupted Main register"), flush=True)
+    wrong = list(res.publics)
+    wrong[0] = (wrong[0] + 1) % prover.P
+    print("zkevm: wrong public refused: "
+          + _refused(prover, verifier, setup, res.cm1_np, wrong,
+                     "a wrong public"), flush=True)
+    print(device.smi("name,power.limit"), flush=True)
+    report = {"n_bits": air.n_bits, "rows": air.n, "trace_s": trace16_s,
+              "setup_s": setup_s, "prove_s": prove_s,
+              "rounds_s": timings, "verify_s": verify_s,
+              "rows_per_s": air.n / prove_s, "peak_bytes": peak,
+              "launches": launches, "n13_prove_s": prove13_s}
+    print("zkevm " + json.dumps(report), flush=True)
     return launches
 
 
@@ -337,7 +474,7 @@ def main() -> int:
     import numpy as np
 
     from xlayer_prover_tpu_torch import device, kernels
-    from xlayer_prover_tpu_torch.models.zkevm import binary_sm
+    from xlayer_prover_tpu_torch.models.zkevm import binary_sm, mini_rom
 
     t_all = time.perf_counter()
     print(device.smi("name,power.limit"), flush=True)
@@ -348,20 +485,28 @@ def main() -> int:
     t0 = time.perf_counter()
     case = binary_sm.seeded_case()
     trace_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    case16 = mini_rom.execute(16)
+    trace16_s = time.perf_counter() - t0
     air = case[0]
     rng = np.random.default_rng(SEED)
     # gl_mul is timed at one butterfly stage of the cm1 LDE
     rows = phase_kernels(torch, rng,
                          (1 << (air.n_bits_ext - 1)) * air.cm1_width)
     phase_fib(torch)
-    launches = phase_binary(torch, case, trace_s)
+    by_path = {"binary_sm_2e20": phase_binary(torch, case, trace_s)}
+    del case
+    by_path["zkevm_2e16"] = phase_zkevm(torch, case16, trace16_s)
+    for path, launches in by_path.items():
+        for name in MAIN_PATH_KERNELS:
+            _require(launches[name] > 0, f"{name} launched on the {path} "
+                     f"path")
     for r in rows:
-        r["launches"] = launches[r["name"]]
-    for name in MAIN_PATH_KERNELS:
-        _require(launches[name] > 0, f"{name} launched on the main path")
+        r["launches"] = by_path["zkevm_2e16"][r["name"]]
+        r["launches_by_path"] = {p: v[r["name"]] for p, v in by_path.items()}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "plain_shape"]
+            "plain_shape", "launches_by_path"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(f"total_s {time.perf_counter() - t_all:.2f}", flush=True)

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one port proof goes, on one GPU.
 
-    python3 profile_proof.py [--out profile.json]
+    python3 profile_proof.py [--case binary|zkevm] [--out profile.json]
 
-Builds the kernels, makes the seeded Binary SM case that ``chip_smoke.py``
-proves (``binary_sm.seeded_case``: the zkEVM's settings), then:
+Builds the kernels, makes one of the cases that ``chip_smoke.py`` proves
+(``binary``: the seeded 2^20-row Binary SM case, ``binary_sm.seeded_case``;
+``zkevm``: the mini-ROM executed into the 2^16-row zkEVM composite AIR,
+``mini_rom.execute(16)``), then:
   1. Setup.build and a first gen_proof (cold: twiddle tables, library
      loads), timed per round;
   2. a second gen_proof, timed per round, that must be byte-equal to the
@@ -15,7 +17,8 @@ proves (``binary_sm.seeded_case``: the zkEVM's settings), then:
      are ranked by total device time, and ``split`` sums the device time
      and launches of the Merkle commitments' kernels and of their
      scaffolding: the two Poseidon kernels, ``torch.cat`` and the copy
-     kernels that make tensors contiguous (names in SPLIT).
+     kernels that make tensors contiguous (names in SPLIT); ``by_op``
+     counts the profiler's CPU-side ATen ops (``aten::...``) by name.
 Prints one JSON line (and writes it to --out if given).  Needs a GPU.
 """
 
@@ -38,6 +41,7 @@ SPLIT = {"poseidon_permute": "poseidon_permute_kernel",
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--case", choices=("binary", "zkevm"), default="binary")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -50,20 +54,27 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from xlayer_prover_tpu_torch import device, kernels
-    from xlayer_prover_tpu_torch.models.zkevm import binary_sm
+    from xlayer_prover_tpu_torch.models.zkevm import binary_sm, mini_rom
     from xlayer_prover_tpu_torch.stark import prover
 
     card = device.smi("name,power.limit")
     print(card, flush=True)
     kernels.build_all()
     t0 = time.perf_counter()
-    air, _layout, const_np, cm1, _actions, _results = binary_sm.seeded_case()
+    if args.case == "binary":
+        air, _layout, const_np, cm1, _actions, _results = \
+            binary_sm.seeded_case()
+        publics = []
+    else:
+        ex, res = mini_rom.execute(16)
+        air, const_np, cm1, publics = ex.air, res.const_np, res.cm1_np, \
+            res.publics
     trace_s = time.perf_counter() - t0
 
     def timed_proof(setup):
         rounds = {}
         t0 = time.perf_counter()
-        proof = prover.gen_proof(setup, cm1, [], timings=rounds)
+        proof = prover.gen_proof(setup, cm1, publics, timings=rounds)
         torch.cuda.synchronize()
         return proof, time.perf_counter() - t0, rounds
 
@@ -80,15 +91,18 @@ def main() -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        prover.gen_proof(setup, cm1, [])
+        prover.gen_proof(setup, cm1, publics)
         torch.cuda.synchronize()
         prof_wall_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     by_name = collections.defaultdict(lambda: [0, 0.0])
     split = {g: [0, 0.0] for g in SPLIT}
     busy_us = 0.0
+    by_op = collections.Counter()
     for ev in prof.events():
         if ev.device_type != DeviceType.CUDA:
+            if ev.name.startswith("aten::"):
+                by_op[ev.name] += 1
             continue
         us = ev.time_range.elapsed_us()
         busy_us += us
@@ -101,7 +115,8 @@ def main() -> int:
                 split[g][1] += us
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
     report = {
-        "card": card, "n_bits": air.n_bits, "trace_s": trace_s,
+        "card": card, "case": args.case, "n_bits": air.n_bits,
+        "trace_s": trace_s,
         "setup_s": setup_s,
         "first_proof_s": first_s, "first_rounds_s": first_rounds,
         "second_proof_s": second_s, "second_rounds_s": second_rounds,
@@ -115,6 +130,7 @@ def main() -> int:
                        for k, v in top],
         "split": {g: {"count": v[0], "ms": v[1] / 1e3}
                   for g, v in split.items()},
+        "by_op": dict(by_op.most_common(15)),
     }
     line = json.dumps(report)
     if args.out:

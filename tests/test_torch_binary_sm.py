@@ -1,55 +1,50 @@
 """Port parity: the zkEVM Binary SM AIR (n_bits 10, chunk_bits 2) proven by
 xlayer_prover_tpu_torch on the CPU is byte-equal (``StarkProof.to_json()``)
 to the JAX package's proof and verifies under both verifiers; a flipped
-trace cell is refused by the port's prover."""
+trace cell is refused by the port's prover.  The JAX proof is the
+committed ``tests/data/binary_sm_n10_q4.proof.json``; the slow test proves
+the case with the JAX package again and compares
+(``tools/torch_proof_fixtures.py`` rewrites the file)."""
 
 import numpy as np
 import pytest
 
 from xlayer_prover_tpu.models.zkevm import binary_sm as jbinary
-from xlayer_prover_tpu.stark import prover as jprover
 from xlayer_prover_tpu.stark import verifier as jverifier
 from xlayer_prover_tpu.stark.air import AirBuilder as JAirBuilder
 from xlayer_prover_tpu_torch.models.zkevm import binary_sm
 from xlayer_prover_tpu_torch.stark import prover, verifier
 from xlayer_prover_tpu_torch.stark.air import AirBuilder
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+from tools import torch_proof_fixtures as fixtures
 
-def _binary_case(sm, builder_cls, n_bits=10):
-    b = builder_cls("binary-sm", n_bits, n_queries=4, fri_fold_bits=3)
-    layout = sm.build(b, n_bits, 2)
-    air = b.compile()
-    const_np = np.zeros((air.n, air.const_width), dtype=np.uint64)
-    sm.fill_fixed(layout, const_np)
-    cm1 = np.zeros((air.n, air.cm1_width), dtype=np.uint64)
-    rng = np.random.default_rng(77)
-    acts = []
-    for op in ["ADD", "SUB", "AND", "XOR", "OR", "LT", "EQ"]:
-        a = int(rng.integers(0, 1 << 62)) << 190 | int(rng.integers(0, 1 << 62))
-        b_ = int(rng.integers(0, 1 << 62)) << 100 | int(rng.integers(0, 1 << 62))
-        acts.append((op, a, b_))
-    sm.expand_trace(layout, acts[:air.n // layout.rows_per_op], cm1)
-    return air, layout, const_np, cm1
+CASE = "binary_sm_n10_q4"
 
 
 def test_binary_sm_proof_byte_equal_and_verifies():
-    air, layout, const_np, cm1 = _binary_case(binary_sm, AirBuilder)
-    jair, _jl, jconst, jcm1 = _binary_case(jbinary, JAirBuilder)
+    air, layout, const_np, cm1, _ = fixtures.binary_sm_case(
+        "xlayer_prover_tpu_torch")
+    jair, _jl, jconst, jcm1, _ = fixtures.binary_sm_case("xlayer_prover_tpu")
     assert np.array_equal(jconst, const_np) and np.array_equal(jcm1, cm1)
     assert (air.cm3_width, air.q_deg, len(air.ev_map)) == \
         (jair.cm3_width, jair.q_deg, len(jair.ev_map))
     setup = prover.Setup.build(air, const_np, device="cpu")
     proof = prover.gen_proof(setup, cm1, [])
-    jsetup = jprover.Setup.build(jair, jconst)
-    jproof = jprover.gen_proof(jsetup, jcm1, [])
-    assert proof.to_json() == jproof.to_json()
-    assert jverifier.verify(jair, jsetup.verkey, proof)
+    # the transcript opens with the verkey: equal proofs, equal verkeys
+    assert proof.to_json() == fixtures.read(CASE)
+    assert jverifier.verify(jair, setup.verkey, proof)
     assert verifier.verify(air, setup.verkey, proof)
 
     bad = cm1.copy()
     bad[5, layout.witness["c_chunk"].index] ^= np.uint64(1)
     with pytest.raises(prover.LookupMissingError):
         prover.gen_proof(setup, bad, [])
+
+
+@pytest.mark.slow
+def test_binary_sm_fixture_is_the_jax_proof():
+    assert fixtures.jax_proof(CASE) == fixtures.read(CASE)
 
 
 def _layout(air):

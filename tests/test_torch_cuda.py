@@ -105,3 +105,16 @@ def test_fib_proof_on_cuda_equals_cpu(cuda_device):
     gpu = prover.gen_proof(setup, cm1_np, publics)
     assert gpu.to_json() == cpu.to_json()
     assert verifier.verify(air, setup.verkey, gpu)
+
+
+def test_zkevm_mini_proof_on_cuda_equals_jax_fixture(cuda_device):
+    """The mini-ROM's composite proof at n_bits 13 on the card is the JAX
+    package's, byte for byte (tests/data/zkevm_mini_n13_q4.proof.json)."""
+    from xlayer_prover_tpu_torch.models.zkevm import mini_rom
+
+    from tools import torch_proof_fixtures as fixtures
+    ex, res = mini_rom.execute(13)
+    setup = prover.Setup.build(ex.air, res.const_np)
+    proof = prover.gen_proof(setup, res.cm1_np, res.publics)
+    assert proof.to_json() == fixtures.read("zkevm_mini_n13_q4")
+    assert verifier.verify(ex.air, setup.verkey, proof)

@@ -13,6 +13,8 @@ from xlayer_prover_tpu.fields import gl3 as jgl3
 from xlayer_prover_tpu_torch import device as tdev
 from xlayer_prover_tpu_torch.fields import gl, gl3
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 P = gl.P
 CPU = torch.device("cpu")
 # tests/test_gl.py's edge values: 0, 1, p-1, p-2, 2^32-1, 2^32, 2^63, and a

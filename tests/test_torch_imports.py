@@ -1,0 +1,46 @@
+"""The port stands alone: no module of xlayer_prover_tpu_torch, and not
+chip_smoke.py, imports JAX or anything of the JAX package
+xlayer_prover_tpu (its jax-free modules included)."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "xlayer_prover_tpu")
+SOURCES = sorted((ROOT / "xlayer_prover_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imported(tree):
+    """Top-level package names of every import statement in `tree`
+    (function-local imports included; relative imports stay inside the
+    package and give none)."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_guard_sees_every_import_form():
+    src = ("import jax.numpy\nfrom xlayer_prover_tpu.stark import air\n"
+           "def f():\n    import importlib\n"
+           "    importlib.import_module('jaxlib')\n"
+           "from . import gl\n")
+    assert sorted(_imported(ast.parse(src))) == [
+        "importlib", "jax", "jaxlib", "xlayer_prover_tpu"]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_port_imports_no_jax(path):
+    bad = sorted(set(_imported(ast.parse(path.read_text()))) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"

@@ -16,6 +16,8 @@ from xlayer_prover_tpu_torch.fields import gl
 from xlayer_prover_tpu_torch.ops import (merkle, ntt, poseidon_constants,
                                          poseidon_gl)
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 P = gl.P
 CPU = torch.device("cpu")
 EDGE_ROWS = np.array([[0] * 12, [1] * 12, [P - 1] * 12,

@@ -17,6 +17,8 @@ from xlayer_prover_tpu.ops import poseidon_gl as jposeidon
 from xlayer_prover_tpu_torch.fields import gl
 from xlayer_prover_tpu_torch.ops import merkle, poseidon_constants, poseidon_gl
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 P = gl.P
 CPU = torch.device("cpu")
 

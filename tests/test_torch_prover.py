@@ -23,6 +23,8 @@ from xlayer_prover_tpu_torch.stark import fri, lookup, prover, verifier
 from xlayer_prover_tpu_torch.stark.air import AirBuilder
 from xlayer_prover_tpu_torch.stark.transcript import Transcript
 
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
 P = gl.P
 CPU = torch.device("cpu")
 

@@ -1,0 +1,112 @@
+"""Port parity: the zkEVM composite AIR (Main + Binary, Memory, Arith,
+PoseidonG, PaddingPG, MemAlign and ArithEC) built by xlayer_prover_tpu_torch
+from the mini-ROM equals the JAX package's, at the mini-ROM test geometry
+(n_bits 13, chunk_bits 2, limb_bits 8) and at the devnet geometry (n_bits
+16, chunk_bits 4, limb_bits 16): column names and indices, section widths,
+every constraint, plookup and permutation, the im columns and the
+evaluation map.  Exact equality."""
+
+import hashlib
+
+import numpy as np
+import pytest
+
+from xlayer_prover_tpu.models.zkevm import zkevm_air as jzkevm_air
+from xlayer_prover_tpu_torch.models.zkevm import zkevm_air
+from xlayer_prover_tpu_torch.models.zkevm.mini_rom import mini_rom
+
+from tests.test_zkevm_proof import mini_rom as jmini_rom
+from tests.torch_cpu import one_torch_thread  # noqa: F401
+
+GEOMETRIES = [(13, 2, 8), (16, 4, 16)]
+
+
+def _digest(e, memo):
+    """A content digest of an expression DAG (node class, fields and the
+    children's digests), memoized by node so shared subtrees cost once."""
+    hit = memo.get(id(e))
+    if hit is not None:
+        return hit[1]
+    kind = type(e).__name__
+    if kind == "BinOp":
+        body = (e.op, _digest(e.a, memo), _digest(e.b, memo))
+    elif kind == "Col":
+        body = (e.section, e.index, e.dim, int(e.shift), e.name)
+    elif kind == "Const":
+        body = (e.value,)
+    elif kind in ("Challenge", "Public"):
+        body = (e.index,)
+    else:
+        body = ()
+    d = hashlib.sha256(repr((kind, body)).encode()).hexdigest()
+    memo[id(e)] = (e, d)
+    return d
+
+
+def _ir(air, layout):
+    memo = {}
+
+    def dg(e):
+        return _digest(e, memo)
+
+    groups = {}
+    for name in ("main", "binary", "memory", "arith", "poseidon",
+                 "padding_pg", "mem_align", "arith_ec"):
+        g = getattr(layout, name)
+        groups[name] = {part: {k: (c.section, c.index, c.name)
+                               for k, c in getattr(g, part).items()}
+                        for part in ("fixed", "witness")}
+    return {
+        "geometry": (air.n_bits, air.n_bits_ext, air.n_queries,
+                     air.fri_steps, air.q_deg, air.n_publics,
+                     air.publics_map),
+        "widths": (air.const_width, air.cm1_width, air.cm2_width,
+                   air.cm3_width),
+        "columns": groups,
+        "constraints": [dg(c) for c in air.constraints],
+        "plookups": [(dg(p.f_exp), dg(p.t_exp), dg(p.h1_col), dg(p.h2_col),
+                      dg(p.z_col)) for p in air.plookups],
+        "permutations": [(dg(p.f_exp), dg(p.t_exp), dg(p.z_col))
+                         for p in air.permutations],
+        "connections": len(air.connections),
+        "im_defs": [(dg(c), dg(e)) for c, e in air.im_defs],
+        "ev_map": [(e.section, e.index, e.dim, e.shift) for e in air.ev_map],
+    }
+
+
+@pytest.mark.parametrize("n_bits,chunk_bits,limb_bits", GEOMETRIES)
+def test_composite_air_matches_jax(n_bits, chunk_bits, limb_bits):
+    air, layout = zkevm_air.build(mini_rom(), n_bits=n_bits,
+                                  chunk_bits=chunk_bits, limb_bits=limb_bits,
+                                  n_queries=4)
+    jair, jlayout = jzkevm_air.build(jmini_rom(), n_bits=n_bits,
+                                     chunk_bits=chunk_bits,
+                                     limb_bits=limb_bits, n_queries=4)
+    ir, jir = _ir(air, layout), _ir(jair, jlayout)
+    for key in ir:
+        assert ir[key] == jir[key], key
+    # the circuit's size at both geometries
+    assert ir["widths"] == (181, 412, 300, 414)
+    assert (len(air.plookups), len(air.permutations)) == (50, 1)
+
+
+@pytest.mark.parametrize("n_bits,chunk_bits,limb_bits", GEOMETRIES)
+def test_fixed_columns_match_jax(n_bits, chunk_bits, limb_bits):
+    """fill_fixed gives the JAX package's constant polynomials."""
+    air, layout = zkevm_air.build(mini_rom(), n_bits=n_bits,
+                                  chunk_bits=chunk_bits, limb_bits=limb_bits,
+                                  n_queries=4)
+    jair, jlayout = jzkevm_air.build(jmini_rom(), n_bits=n_bits,
+                                     chunk_bits=chunk_bits,
+                                     limb_bits=limb_bits, n_queries=4)
+    assert np.array_equal(zkevm_air.fill_fixed(air, layout),
+                          jzkevm_air.fill_fixed(jair, jlayout))
+
+
+@pytest.mark.parametrize("kw", [{"n_bits": 18}, {"storage_rom": object()},
+                                {"n_bits": 13, "with_keccak": True},
+                                {"n_bits": 13, "with_sha": True}],
+                         ids=["n_bits18", "storage", "keccak", "sha"])
+def test_unported_state_machines_raise(kw):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        zkevm_air.build(mini_rom(), **kw)

@@ -39,11 +39,15 @@ RATE = pc.RATE
 CAPACITY = pc.CAPACITY
 HASH_SIZE = 4
 N_ROUNDS = pc.FULL_ROUNDS + pc.PARTIAL_ROUNDS
+_MDS_SMALL = 1 << 16        # the MDS sums of the kernels and _mds_plain
+                            # need entries below
 
 
 @functools.lru_cache(maxsize=None)
 def _tables(device: torch.device):
     consts, mds = pc.get_params()
+    if max(v for row in mds for v in row) >= _MDS_SMALL:
+        raise ValueError("the plain Poseidon needs MDS entries < 2^16")
     c = gl.from_u64_np(np.array(consts, dtype=np.uint64).reshape(
         N_ROUNDS, WIDTH), device)
     m = gl.from_u64_np(np.array(mds, dtype=np.uint64), device)
@@ -63,16 +67,16 @@ def _sbox_plain(x):
 
 
 def _mds_plain(state, m):
-    """state (..., 12): out_j = sum_i s_i M[i][j], broadcast + tree sum."""
-    prod = gl._mul_plain(state[..., :, None], m)        # (..., i, j)
-    pad = torch.zeros(prod.shape[:-2] + (4, WIDTH), dtype=prod.dtype,
-                      device=prod.device)
-    acc = torch.cat([prod, pad], dim=-2)                # i-axis 12 -> 16
-    k = 16
-    while k > 1:
-        k //= 2
-        acc = gl.add(acc[..., :k, :], acc[..., k:, :])
-    return acc[..., 0, :]
+    """state (..., 12): out_j = sum_i s_i M[i][j] mod p.  The entries of M
+    are below 2^16 (``_tables`` checks), so the 32-bit halves of s times M
+    sum exactly in int64 (below 2^56): lo + hi 2^32, folded once with
+    2^64 = 2^32 - 1 (mod p)."""
+    lo = ((state & gl.MASK32)[..., :, None] * m).sum(-2)
+    hi = (((state >> 32) & gl.MASK32)[..., :, None] * m).sum(-2)
+    x = ((hi >> 32) & gl.MASK32) * gl.EPSILON + lo
+    r = x + (hi << 32)
+    r = torch.where(dev.ult(r, x), r + gl.EPSILON, r)
+    return gl._cond_sub_p(r)
 
 
 def _permute_plain(state):
@@ -107,7 +111,6 @@ KERNEL_LAYOUT = (
     ("pre", (WIDTH, WIDTH, _TERM)),
     ("partial", (pc.PARTIAL_ROUNDS, 2 * (WIDTH - 1) + 4 + WIDTH * _TERM)),
     ("mds", (WIDTH, WIDTH, 2)))
-_MDS_SMALL = 1 << 16        # the kernels' full-round MDS needs entries below
 
 
 def _limbs(w: int) -> list:
