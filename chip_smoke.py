@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (xlayer_prover_tpu_torch) on one GPU.
 
     python3 chip_smoke.py            # full run: builds the kernels, proves
-                                     # the 2^20-row Binary SM AIR and the
-                                     # 2^16-row zkEVM composite AIR
+                                     # the 2^20-row Binary SM AIR, the
+                                     # mini-ROM's zkEVM composite AIR at
+                                     # 2^13 rows and devnet batch 0 through
+                                     # the fork_9 ROM at 2^16 rows
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -24,20 +26,26 @@ Phases (any failure exits non-zero and prints no result line):
      refused; the launch counts of this phase show that the proof went
      through poseidon_linear_hash (every Merkle leaf and level) and gl_mul.
      poseidon_permute is off this path; its row reports its count, 0;
-  5. zkevm, the main path of the zkEVM batch proof: the mini-ROM
-     (``models/zkevm/mini_rom.py``) executed by the port's Executor into
-     the composite AIR (Main + Binary, Memory, Arith, PoseidonG,
-     PaddingPG, MemAlign and ArithEC: 412 committed and 181 fixed columns,
-     50 plookups, the Main<->Memory permutation).  (a) At n_bits 13 the
-     card's proof must be byte-equal to the JAX package's, committed as
-     tests/data/zkevm_mini_n13_q4.proof.json.  (b) At n_bits 16 (chunk_bits
-     4, limb_bits 16, 4 queries): Setup.build, gen_proof (launches counted
-     from 0), verify, and a trace with Main's A0 corrupted at row 2 and a
-     wrong public must both be refused.  Before (b), phase 2's kernels are
-     also held bit for bit at (b)'s shapes (the cm1 leaves, 2^17 x 412; an
-     LDE stage, 2^16 x 412).
-It prints a ``{"kernels": [...]}`` line (``launches``: the zkevm path's
-counts; ``launches_by_path`` has phase 4's too) and ends with
+  5. zkevm: the mini-ROM (``models/zkevm/mini_rom.py``) executed by the
+     port's Executor into the composite AIR without Storage and ClimbKey
+     (Main + Binary, Memory, Arith, PoseidonG, PaddingPG, MemAlign and
+     ArithEC, the Main<->Memory permutation) at n_bits 13 (chunk_bits 2,
+     limb_bits 8, 4 queries): Setup.build and gen_proof (launches counted
+     from 0); the card's proof must be byte-equal to the JAX package's,
+     committed as tests/data/zkevm_mini_n13_q4.proof.json, and verify.
+     Phase 6 proves the same circuit with Storage and ClimbKey at 2^16;
+  6. devnet, the main path of a real batch: devnet batch 0 (a signed
+     EIP-155 transfer, ``utils/devnet.build_devnet_inputs``) through
+     ``BatchProver`` over the fork_9 ROM with the Storage and ClimbKey SMs
+     (519 committed columns) at 2^16 rows (chunk_bits 4, limb_bits 16, 4
+     queries): execute_only, setup(), prove (launches counted from 0).
+     The proof must be byte-equal to the JAX package's,
+     a7_state_devnet/batch_proof_0vdev0_nb16_q4.json, and verify; a forged
+     sRD value in the trace and a wrong new-state-root public must both be
+     refused.  Before it, phase 2's kernels are held bit for bit at its
+     shapes (the cm1 leaves, 2^17 x 519; an LDE stage, 2^16 x 519).
+It prints a ``{"kernels": [...]}`` line (``launches``: the devnet path's
+counts; ``launches_by_path`` has phases 4 and 5 too) and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -57,6 +65,9 @@ SEED = 20261016                    # kernel inputs of phase 2
 MAIN_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
 ZKEVM_FIXTURE = os.path.join(REPO, "tests", "data",
                              "zkevm_mini_n13_q4.proof.json")
+DEVNET_FIXTURE = os.path.join(REPO, "a7_state_devnet",
+                              "batch_proof_0vdev0_nb16_q4.json")
+NEW_STATE_ROOT = 19                # publics[19:27]: newStateRoot limbs
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -119,19 +130,24 @@ def poseidon_mul32() -> int:
     return (pc.FULL_ROUNDS - 1) * dense + pre + sparse + sboxes * 14
 
 
+def int_mul_rate(torch) -> float:
+    """32-bit integer multiplies a second of the card at its top clock."""
+    from xlayer_prover_tpu_torch import device
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_hz = float(device.smi("clocks.max.sm").split()[0]) * 1e6
+    return sms * INT_MUL_PER_CLK_SM * clock_hz
+
+
 def phase_kernels(torch, rng, n_ext_half_cols: int):
     """Each kernel against its plain version, bit for bit, and timed."""
     import numpy as np
 
-    from xlayer_prover_tpu_torch import device
     from xlayer_prover_tpu_torch.fields import gl
     from xlayer_prover_tpu_torch.ops import poseidon_gl
 
     P = gl.P
     cuda = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_hz = float(device.smi("clocks.max.sm").split()[0]) * 1e6
-    int_rate = sms * INT_MUL_PER_CLK_SM * clock_hz
+    int_rate = int_mul_rate(torch)
     edges = np.array([0, 1, P - 1, P - 2, (1 << 32) - 1, 1 << 32, 1 << 63,
                       P, P + 1, (1 << 64) - 1], dtype=np.uint64)
     rows = []
@@ -345,9 +361,10 @@ def phase_binary(torch, case, trace_s: float):
     return launches
 
 
-def check_zkevm_shapes(torch, air):
-    """poseidon_linear_hash on the zkevm path's cm1 leaves and gl_mul on one
-    stage of its cm1 LDE, each bit for bit against its plain version."""
+def check_devnet_shapes(torch, air):
+    """poseidon_linear_hash on the devnet path's cm1 leaves and gl_mul on
+    one stage of its cm1 LDE, each bit for bit against its plain
+    version."""
     from xlayer_prover_tpu_torch.fields import gl
     from xlayer_prover_tpu_torch.ops import poseidon_gl
 
@@ -358,7 +375,7 @@ def check_zkevm_shapes(torch, air):
     err = _max_abs_err(poseidon_gl.linear_hash(leaves, width),
                        poseidon_gl._linear_hash_plain(leaves, width))
     _require(err == 0, "poseidon_linear_hash equals its plain version at "
-             "the zkevm cm1 leaves")
+             "the devnet cm1 leaves")
     ms = _cuda_ms(lambda: poseidon_gl.linear_hash(leaves, width), 5)
     del leaves
     m = (air.n_ext // 2) * width
@@ -367,44 +384,35 @@ def check_zkevm_shapes(torch, air):
     tb = torch.randint(-(1 << 63), (1 << 63) - 1, (m,), dtype=torch.int64,
                        device=cuda)
     err = _max_abs_err(gl.gl_mul(ta, tb), gl._mul_plain(ta, tb))
-    _require(err == 0, "gl_mul equals its plain version at the zkevm LDE "
+    _require(err == 0, "gl_mul equals its plain version at the devnet LDE "
              "stage")
     mul_ms = _cuda_ms(lambda: gl.gl_mul(ta, tb), 20)
     del ta, tb
     torch.cuda.empty_cache()
-    print(f"kernel poseidon_linear_hash at [{air.n_ext}, {width}] (zkevm cm1 "
-          f"leaves): {ms:.4f} ms, bit-equal; gl_mul at [{m}] (zkevm LDE "
-          f"stage): {mul_ms:.4f} ms, bit-equal", flush=True)
+    # the least times, as in phase_kernels: the larger of the bytes over
+    # the memory rate and the 32-bit multiplies over the integer rate
+    perms = -(-width // 8) * air.n_ext
+    hash_bound = max(poseidon_mul32() * perms / int_mul_rate(torch),
+                     (width + 4) * 8 * air.n_ext / HBM_BYTES_PER_S) * 1e3
+    mul_bound = max(24 * m / HBM_BYTES_PER_S,
+                    GL_MUL_MULS * m / int_mul_rate(torch)) * 1e3
+    print(f"kernel poseidon_linear_hash at [{air.n_ext}, {width}] (devnet "
+          f"cm1 leaves): {ms:.4f} ms (bound {hash_bound:.4f} ms), bit-equal;"
+          f" gl_mul at [{m}] (devnet LDE stage): {mul_ms:.4f} ms (bound "
+          f"{mul_bound:.4f} ms), bit-equal", flush=True)
 
 
-def phase_zkevm(torch, case16, trace16_s: float):
-    from xlayer_prover_tpu_torch import device, kernels
+def phase_zkevm(torch):
+    """The mini-ROM's composite at n_bits 13 against the JAX package's
+    proof; launches counted from 0."""
+    from xlayer_prover_tpu_torch import kernels
     from xlayer_prover_tpu_torch.models.zkevm import mini_rom
     from xlayer_prover_tpu_torch.stark import prover, verifier
 
-    # (a) n_bits 13: the card's proof against the JAX package's
     t0 = time.perf_counter()
-    ex13, res13 = mini_rom.execute(13)
-    trace13_s = time.perf_counter() - t0
-    setup13 = prover.Setup.build(ex13.air, res13.const_np)
-    t0 = time.perf_counter()
-    proof13 = prover.gen_proof(setup13, res13.cm1_np, res13.publics)
-    prove13_s = time.perf_counter() - t0
-    with open(ZKEVM_FIXTURE) as f:
-        _require(proof13.to_json() == f.read(),
-                 "the n_bits 13 zkEVM proof on the card is byte-equal to "
-                 "the JAX package's")
-    _require(verifier.verify(ex13.air, setup13.verkey, proof13),
-             "the n_bits 13 zkEVM proof verifies")
-    print(f"zkevm n_bits=13: trace_s={trace13_s:.3f} prove_s={prove13_s:.3f}"
-          f", byte-equal to {os.path.relpath(ZKEVM_FIXTURE, REPO)}, "
-          f"verifies", flush=True)
-    del setup13, proof13
-
-    # (b) n_bits 16: the main path, launches counted from 0
-    ex, res = case16
-    air = ex.air
-    ctx = res.ctx
+    ex, res = mini_rom.execute(13)
+    trace_s = time.perf_counter() - t0
+    air, ctx = ex.air, res.ctx
     _require(ctx.done and ctx.counters.steps == 24
              and (ctx.counters.binary, ctx.counters.arith) == (3, 1),
              "mini-ROM execution: 24 steps, 3 binary ops, 1 arith")
@@ -413,10 +421,7 @@ def phase_zkevm(torch, case16, trace16_s: float):
           f"q_deg={air.q_deg} plookups={len(air.plookups)} permutations="
           f"{len(air.permutations)} constraints={len(air.constraints)} "
           f"ev_map={len(air.ev_map)} fri_steps={air.fri_steps}", flush=True)
-    check_zkevm_shapes(torch, air)
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
     setup = prover.Setup.build(air, res.const_np)
@@ -428,36 +433,97 @@ def phase_zkevm(torch, case16, trace16_s: float):
     torch.cuda.synchronize()
     prove_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    with open(ZKEVM_FIXTURE) as f:
+        _require(proof.to_json() == f.read(),
+                 "the n_bits 13 zkEVM proof on the card is byte-equal to "
+                 "the JAX package's")
+    _require(verifier.verify(air, setup.verkey, proof),
+             "the n_bits 13 zkEVM proof verifies")
+    print(f"zkevm n_bits=13: byte-equal to "
+          f"{os.path.relpath(ZKEVM_FIXTURE, REPO)}, verifies", flush=True)
+    report = {"n_bits": air.n_bits, "rows": air.n, "trace_s": trace_s,
+              "setup_s": setup_s, "prove_s": prove_s, "rounds_s": timings,
+              "launches": launches}
+    print("zkevm " + json.dumps(report), flush=True)
+    return launches
+
+
+def phase_devnet(torch):
+    import numpy as np
+
+    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.stark import prover, verifier
+    from xlayer_prover_tpu_torch.utils import devnet
 
     t0 = time.perf_counter()
-    _require(verifier.verify(air, setup.verkey, proof),
-             "the n_bits 16 zkEVM proof verifies")
-    verify_s = time.perf_counter() - t0
-    _require(len(proof.evals) == len(air.ev_map)
-             and len(proof.fri_steps) == len(air.fri_steps)
-             and len(proof.final_pol) == 1 << air.fri_steps[-1]
-             and proof.publics == [int(p) for p in res.publics],
-             "the zkEVM proof has the AIR's shape and the run's publics")
+    engine = devnet.devnet_prover()
+    inp = devnet.build_devnet_inputs(engine, 1)[0]
+    res = engine.execute_only(inp)
+    trace_s = time.perf_counter() - t0
+    air, layout, ctx = engine.air, engine.executor.layout, res.ctx
+    _require(ctx.done and ctx.counters.steps == 6589
+             and len(ctx.required.storage) > 0 and ctx.ec_memo_hits > 0,
+             "devnet batch 0: 6,589 steps, storage actions, the ECRecover "
+             "precalc served")
+    print(f"devnet: n_bits={air.n_bits} cm1={air.cm1_width} const="
+          f"{air.const_width} cm2={air.cm2_width} cm3={air.cm3_width} "
+          f"q_deg={air.q_deg} plookups={len(air.plookups)} permutations="
+          f"{len(air.permutations)} constraints={len(air.constraints)} "
+          f"ev_map={len(air.ev_map)} fri_steps={air.fri_steps} steps="
+          f"{ctx.counters.steps} storage_actions={len(ctx.required.storage)}"
+          f" trace_s={trace_s:.3f}", flush=True)
+    check_devnet_shapes(torch, air)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    setup = engine.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    timings = {}
+    t0 = time.perf_counter()
+    proof = engine.prove_from_trace(res.cm1_np, res.publics, timings=timings)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _require(setup.const_ext.is_cuda, "the devnet setup lives on the card")
 
+    with open(DEVNET_FIXTURE) as f:
+        _require(proof.to_json() == json.load(f)["proof"],
+                 "the devnet batch 0 proof on the card is byte-equal to "
+                 "the JAX package's")
+    t0 = time.perf_counter()
+    _require(verifier.verify(air, setup.verkey, proof),
+             "the devnet batch 0 proof verifies")
+    verify_s = time.perf_counter() - t0
+    print(f"devnet: proof byte-equal to "
+          f"{os.path.relpath(DEVNET_FIXTURE, REPO)}, verifies", flush=True)
+
+    # an sRD returning a forged value (FREE and op moved together, so the
+    # op accumulator still holds): only the Storage latchGet lookup sees it
+    mw = layout.main.witness
     bad = res.cm1_np.copy()
-    col = ex.layout.main.witness["A0"].index
-    bad[2, col] = (int(bad[2, col]) + 1) % prover.P
-    print("zkevm: corrupted A0 at row 2 refused: "
+    row = int(np.nonzero(bad[:, mw["sRD"].index])[0][0])
+    for name in ("op0", "FREE0"):
+        col = mw[name].index
+        bad[row, col] = (int(bad[row, col]) + 1) % prover.P
+    print(f"devnet: forged sRD value at row {row} refused: "
           + _refused(prover, verifier, setup, bad, res.publics,
-                     "a trace with a corrupted Main register"), flush=True)
+                     "a forged sRD value"), flush=True)
     wrong = list(res.publics)
-    wrong[0] = (wrong[0] + 1) % prover.P
-    print("zkevm: wrong public refused: "
+    wrong[NEW_STATE_ROOT] = (wrong[NEW_STATE_ROOT] + 1) % prover.P
+    print("devnet: wrong new-state-root public refused: "
           + _refused(prover, verifier, setup, res.cm1_np, wrong,
-                     "a wrong public"), flush=True)
+                     "a wrong new state root"), flush=True)
     print(device.smi("name,power.limit"), flush=True)
-    report = {"n_bits": air.n_bits, "rows": air.n, "trace_s": trace16_s,
+    report = {"n_bits": air.n_bits, "rows": air.n, "trace_s": trace_s,
               "setup_s": setup_s, "prove_s": prove_s,
               "rounds_s": timings, "verify_s": verify_s,
               "rows_per_s": air.n / prove_s, "peak_bytes": peak,
-              "launches": launches, "n13_prove_s": prove13_s}
-    print("zkevm " + json.dumps(report), flush=True)
+              "launches": launches}
+    print("devnet " + json.dumps(report), flush=True)
     return launches
 
 
@@ -474,7 +540,7 @@ def main() -> int:
     import numpy as np
 
     from xlayer_prover_tpu_torch import device, kernels
-    from xlayer_prover_tpu_torch.models.zkevm import binary_sm, mini_rom
+    from xlayer_prover_tpu_torch.models.zkevm import binary_sm
 
     t_all = time.perf_counter()
     print(device.smi("name,power.limit"), flush=True)
@@ -485,9 +551,6 @@ def main() -> int:
     t0 = time.perf_counter()
     case = binary_sm.seeded_case()
     trace_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    case16 = mini_rom.execute(16)
-    trace16_s = time.perf_counter() - t0
     air = case[0]
     rng = np.random.default_rng(SEED)
     # gl_mul is timed at one butterfly stage of the cm1 LDE
@@ -496,13 +559,14 @@ def main() -> int:
     phase_fib(torch)
     by_path = {"binary_sm_2e20": phase_binary(torch, case, trace_s)}
     del case
-    by_path["zkevm_2e16"] = phase_zkevm(torch, case16, trace16_s)
+    by_path["zkevm_2e13"] = phase_zkevm(torch)
+    by_path["devnet_2e16"] = phase_devnet(torch)
     for path, launches in by_path.items():
         for name in MAIN_PATH_KERNELS:
             _require(launches[name] > 0, f"{name} launched on the {path} "
                      f"path")
     for r in rows:
-        r["launches"] = by_path["zkevm_2e16"][r["name"]]
+        r["launches"] = by_path["devnet_2e16"][r["name"]]
         r["launches_by_path"] = {p: v[r["name"]] for p, v in by_path.items()}
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

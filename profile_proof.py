@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Where the time of one port proof goes, on one GPU.
 
-    python3 profile_proof.py [--case binary|zkevm] [--out profile.json]
+    python3 profile_proof.py [--case binary|zkevm|devnet] [--out profile.json]
 
 Builds the kernels, makes one of the cases that ``chip_smoke.py`` proves
 (``binary``: the seeded 2^20-row Binary SM case, ``binary_sm.seeded_case``;
 ``zkevm``: the mini-ROM executed into the 2^16-row zkEVM composite AIR,
-``mini_rom.execute(16)``), then:
+``mini_rom.execute(16)``; ``devnet``: devnet batch 0 through the fork_9
+ROM with the Storage SM, ``utils/devnet``), then:
   1. Setup.build and a first gen_proof (cold: twiddle tables, library
      loads), timed per round;
   2. a second gen_proof, timed per round, that must be byte-equal to the
@@ -41,7 +42,8 @@ SPLIT = {"poseidon_permute": "poseidon_permute_kernel",
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=("binary", "zkevm"), default="binary")
+    ap.add_argument("--case", choices=("binary", "zkevm", "devnet"),
+                    default="binary")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -56,6 +58,7 @@ def main() -> int:
     from xlayer_prover_tpu_torch import device, kernels
     from xlayer_prover_tpu_torch.models.zkevm import binary_sm, mini_rom
     from xlayer_prover_tpu_torch.stark import prover
+    from xlayer_prover_tpu_torch.utils import devnet
 
     card = device.smi("name,power.limit")
     print(card, flush=True)
@@ -65,9 +68,14 @@ def main() -> int:
         air, _layout, const_np, cm1, _actions, _results = \
             binary_sm.seeded_case()
         publics = []
-    else:
+    elif args.case == "zkevm":
         ex, res = mini_rom.execute(16)
         air, const_np, cm1, publics = ex.air, res.const_np, res.cm1_np, \
+            res.publics
+    else:
+        engine = devnet.devnet_prover()
+        res = engine.execute_only(devnet.build_devnet_inputs(engine, 1)[0])
+        air, const_np, cm1, publics = engine.air, res.const_np, res.cm1_np, \
             res.publics
     trace_s = time.perf_counter() - t0
 

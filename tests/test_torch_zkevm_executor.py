@@ -189,17 +189,21 @@ def _one_line_rom(labels_at_start=(), **kw):
     prog = [dict(kw), {}]
     labels = {"start": 0, "finalizeExecution": 1}
     labels.update({name: 0 for name in labels_at_start})
-    return Rom.from_json({"program": prog, "labels": labels,
-                          "constants": {}})
+    return {"program": prog, "labels": labels, "constants": {}}
 
 
-@pytest.mark.parametrize("rom_kw", [
-    {"freeInTag": {}, "inFREE": 1, "sRD": 1, "setA": 1},
-    {"inA": 1, "sWR": 1},
-    {"labels_at_start": ("ecrecover_store_args",), "setA": 1},
+@pytest.mark.parametrize("rom_kw,n_storage", [
+    ({"freeInTag": {}, "inFREE": 1, "sRD": 1, "setA": 1}, 1),
+    ({"inA": 1, "sWR": 1}, 1),
+    ({"labels_at_start": ("ecrecover_store_args",), "setA": 1}, 0),
 ], ids=["sRD", "sWR", "ecrecover"])
-def test_unported_operations_raise(rom_kw):
-    ex = Executor(_one_line_rom(**rom_kw), n_bits=12, chunk_bits=2,
-                  limb_bits=8, n_queries=4, max_steps=8)
-    with pytest.raises(NotImplementedError, match="fork_9"):
-        ex.execute()
+def test_unported_operations_raise(rom_kw, n_storage):
+    """The operations the port once lacked (an sRD, an sWR on the empty
+    state, the ECRecover precalc hook) raise no NotImplementedError now:
+    each one-line program runs as in the JAX package, storage actions
+    included."""
+    prog = _one_line_rom(**rom_kw)
+    res = _execute_both(Rom.from_json(prog), JRom.from_json(prog),
+                        n_bits=12, chunk_bits=2, limb_bits=8, n_queries=4,
+                        max_steps=8)
+    assert len(res.ctx.required.storage) == n_storage

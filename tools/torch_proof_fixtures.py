@@ -7,6 +7,9 @@ port's proofs against, byte for byte (``StarkProof.to_json()``).
 writes ``tests/data/<name>.proof.json``.  The JAX prover takes minutes on
 the CPU for these cases, so the fast tests read the files and the slow
 tests (``-m slow``) prove each case with the JAX package again and compare.
+The devnet batch 0 proof (``devnet_batch0_n16_q4``) is the committed
+``a7_state_devnet/batch_proof_0vdev0_nb16_q4.json``: it is read in place
+and never rewritten, and only ``jax_proof`` proves it again.
 The JAX package does not change, so a file goes stale only if its case
 does.
 
@@ -17,6 +20,7 @@ package or the port), so both build the same trace from one definition.
 from __future__ import annotations
 
 import importlib
+import json
 import os
 import sys
 
@@ -83,18 +87,141 @@ def zkevm_mini_case(pkg: str):
     return ex.air, ex.layout, res.const_np, res.cm1_np, res.publics
 
 
+# keys that force every SMT mode: K1/K2 diverge at level 4 (insertFound),
+# K3 sits alone on the other side of the root, K7 shares K3's first four
+# bits (a get miss and zeroToZero against K3's leaf)
+SMT_KEYS = {"K1": (4, 1, 1, 1), "K2": (6, 1, 1, 1), "K3": (5, 1, 1, 1),
+            "K7": (7, 1, 1, 1)}
+SMT_SCRIPT = [("set", "K1", 100), ("set", "K2", 200 << 130),
+              ("set", "K3", 300), ("set", "K1", 111), ("get", "K1", None),
+              ("get", "K7", None), ("set", "K7", 0), ("set", "K3", 0),
+              ("set", "K2", 0), ("set", "K1", 0), ("get", "K1", None)]
+
+
+def smt_script(pkg: str):
+    """The all-modes SMT script of tests/test_storage_executor.py:_script
+    (insertNotFound, insertFound, update, get hit and miss, zeroToZero,
+    deleteNotFound, deleteFound, the root leaf's deletion) run by `pkg`'s
+    SMT.  -> [SmtAction]"""
+    smt_mod = importlib.import_module(f"{pkg}.state.smt")
+    db_mod = importlib.import_module(f"{pkg}.state.database")
+    se = importlib.import_module(f"{pkg}.executor.storage_executor")
+    smt = smt_mod.Smt(db_mod.MemoryDB())
+    root = (0, 0, 0, 0)
+    actions = []
+    for kind, key, value in SMT_SCRIPT:
+        if kind == "set":
+            res = smt.set(root, SMT_KEYS[key], value)
+            root = res.new_root
+            actions.append(se.SmtAction(is_set=True, set_result=res))
+        else:
+            res = smt.get(root, SMT_KEYS[key])
+            actions.append(se.SmtAction(is_set=False, get_result=res))
+    return actions
+
+
+def storage_case(pkg: str, n_bits: int = 11):
+    """Storage + ClimbKey + PoseidonG as one AIR (the JAX package's
+    tests/test_storage_sm_air.py circuit: n_bits 11, 8 queries, FRI fold
+    3 bits) over the bundled micro-ROM, with the all-modes SMT script
+    replayed into it.  -> (air, layout, const, cm1, publics); layout is
+    (storage, climb_key, poseidon_g)."""
+    srom = importlib.import_module(f"{pkg}.executor.storage_rom")
+    air_mod = importlib.import_module(f"{pkg}.stark.air")
+    zk = f"{pkg}.models.zkevm"
+    storage_sm = importlib.import_module(f"{zk}.storage_sm")
+    climb_key_sm = importlib.import_module(f"{zk}.climb_key_sm")
+    poseidon_g_sm = importlib.import_module(f"{zk}.poseidon_g_sm")
+    b = air_mod.AirBuilder("storage", n_bits, n_queries=8, fri_fold_bits=3)
+    sl = storage_sm.build(b, srom.StorageRom.load_default(), n_bits)
+    cl = climb_key_sm.build(b, n_bits)
+    pl = poseidon_g_sm.build(b, n_bits)
+    storage_sm.bind(b, sl, cl, pl)
+    air = b.compile()
+    const_np = np.zeros((air.n, air.const_width), dtype=np.uint64)
+    storage_sm.fill_fixed(sl, const_np)
+    climb_key_sm.fill_fixed(cl, const_np)
+    poseidon_g_sm.fill_fixed(pl, const_np)
+    cm1 = np.zeros((air.n, air.cm1_width), dtype=np.uint64)
+    pg, ck = storage_sm.expand_into(sl, smt_script(pkg), cm1)
+    climb_key_sm.expand_into(cl, ck, cm1)
+    poseidon_g_sm.expand_into(pl, [list(t[0]) for t in pg], cm1)
+    return air, (sl, cl, pl), const_np, cm1, []
+
+
+def devnet_input(pkg: str):
+    """Devnet batch 0 (tools/run_a7_cascade.py build_devnet_inputs): a
+    genesis of two accounts, one signed EIP-155 transfer of 1000 wei at
+    nonce 0, chain 1001, encoded as a witness and a datastream and decoded
+    by `pkg`.  -> BatchInput"""
+    devnet = importlib.import_module(f"{pkg}.utils.devnet")
+    witness = importlib.import_module(f"{pkg}.state.witness")
+    ds = importlib.import_module(f"{pkg}.state.datastream")
+    inp_mod = importlib.import_module(f"{pkg}.executor.input")
+    chain_id, priv1, priv2 = 1001, 0xA11CE, 0xB0B
+    a1, a2 = devnet.address_of(priv1), devnet.address_of(priv2)
+    g = devnet.build_genesis([devnet.Account(address=a1, balance=10 ** 18),
+                              devnet.Account(address=a2, balance=5)])
+    wres = witness.witness2db(devnet.encode_witness(g))
+    tx = devnet.sign_legacy_tx(nonce=0, gas_price=10 ** 9, gas=21000, to=a2,
+                               value=1000, data=b"", chain_id=chain_id,
+                               priv=priv1)
+    batch = ds.datastream2batch(devnet.encode_datastream(
+        batch_number=1, chain_id=chain_id, fork_id=9, coinbase=a2,
+        blocks=[{"block_number": 1, "timestamp": 100,
+                 "delta_timestamp": 100, "l1_info_tree_index": 0,
+                 "txs": [tx]}]))
+    inp = inp_mod.BatchInput(old_state_root=wres.state_root,
+                             chain_id=chain_id, fork_id=9,
+                             batch_l2_data=ds.batch_to_l2_data(batch),
+                             sequencer_addr=a2, timestamp_limit=200)
+    inp.db_raw = {k: list(v) for k, v in wres.db.items()}
+    inp.programs_raw = {k: bytes(v) for k, v in wres.programs.items()}
+    return inp
+
+
+def devnet_prover(pkg: str):
+    """`pkg`'s BatchProver over the fork_9 ROM with the Storage SM at the
+    devnet geometry (the port's ``utils/devnet.DEVNET_GEOMETRY``); the
+    port's proves on the CPU."""
+    from xlayer_prover_tpu_torch.utils import devnet
+    if pkg != "xlayer_prover_tpu":
+        return devnet.devnet_prover(device="cpu")
+    from xlayer_prover_tpu.executor.rom import Rom
+    from xlayer_prover_tpu.executor.storage_rom import StorageRom
+    from xlayer_prover_tpu.prover_service import BatchProver
+    return BatchProver(Rom.load_fork(9), **devnet.DEVNET_GEOMETRY,
+                       storage_rom=StorageRom.load_default())
+
+
+def devnet_case(pkg: str):
+    """Devnet batch 0 executed by `pkg`'s BatchProver.  -> (air, layout,
+    const, cm1, publics)"""
+    engine = devnet_prover(pkg)
+    res = engine.execute_only(devnet_input(pkg))
+    return (engine.air, engine.executor.layout, res.const_np, res.cm1_np,
+            res.publics)
+
+
 CASES = {"binary_sm_n10_q4": binary_sm_case,
          "composite_n11_q4": composite_case,
-         "zkevm_mini_n13_q4": zkevm_mini_case}
+         "zkevm_mini_n13_q4": zkevm_mini_case,
+         "storage_n11_q8": storage_case,
+         "devnet_batch0_n16_q4": devnet_case}
+# committed elsewhere, as {"level": 0, "proof": <to_json()>}: read, never
+# rewritten
+IN_PLACE = {"devnet_batch0_n16_q4": os.path.join(
+    ROOT, "a7_state_devnet", "batch_proof_0vdev0_nb16_q4.json")}
 
 
 def path(name: str) -> str:
-    return os.path.join(DATA, f"{name}.proof.json")
+    return IN_PLACE.get(name, os.path.join(DATA, f"{name}.proof.json"))
 
 
 def read(name: str) -> str:
     with open(path(name)) as f:
-        return f.read()
+        text = f.read()
+    return json.loads(text)["proof"] if name in IN_PLACE else text
 
 
 def jax_proof(name: str) -> str:
@@ -110,7 +237,10 @@ def main(names) -> int:
     import jax
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
-    for name in names or list(CASES):
+    for name in names or [c for c in CASES if c not in IN_PLACE]:
+        if name in IN_PLACE:
+            raise SystemExit(f"{path(name)} is read in place, never "
+                             f"rewritten")
         text = jax_proof(name)
         with open(path(name), "w") as f:
             f.write(text)

@@ -21,6 +21,7 @@ import numpy as np
 
 from ..models.zkevm import zkevm_air
 from ..models.zkevm.padding_bytes import ByteStreamInput
+from ..state.hashdb import HashDB
 from .main_sm import Context, MainExecutor, Required, linearize_reads
 from .rom import Rom
 
@@ -54,12 +55,17 @@ class Executor:
             n_queries=n_queries, start_label=start_label,
             stop_label=stop_label, storage_rom=storage_rom)
 
-    def execute(self, input_vars: Optional[dict] = None) -> ExecutionResult:
-        """Execute + commit the Main trace + expand all SMs.  The JAX
-        package's ``hashdb`` argument comes with the storage operations
-        (the fork_9 slice)."""
-        ctx = Context(self.rom, input_vars)
+    def execute(self, hashdb: Optional[HashDB] = None,
+                batch_uuid: str = "batch", input_vars: Optional[dict] = None,
+                setup_registers=None) -> ExecutionResult:
+        """Execute + commit the Main trace + expand all SMs.  `hashdb`
+        holds the pre-state (an empty state when None); `setup_registers`
+        sets the initial register file (``BatchInput.setup_registers``)."""
+        ctx = Context(self.rom, HashDB() if hashdb is None else hashdb,
+                      batch_uuid, input_vars)
         ctx.trace = []
+        if setup_registers is not None:
+            setup_registers(ctx)
         self.main.execute(ctx, self.start_label, self.stop_label)
         req: Required = ctx.required
 

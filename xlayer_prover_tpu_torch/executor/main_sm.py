@@ -1,10 +1,9 @@
 """Main state machine interpreter (zkASM ROM executor).
 
-The port's own copy of ``xlayer_prover_tpu/executor/main_sm.py``.  The
-storage operations (sRD/sWR, which need the SMT and HashDB) and the
-ECRecover precalc raise ``NotImplementedError`` until the fork_9 slice of
-the port brings them; the mini-ROM reaches neither.  Keccak-256 digests
-come from the port's pure-Python ``utils/keccak.py``.
+The port's own copy of ``xlayer_prover_tpu/executor/main_sm.py``.
+Keccak-256 digests come from the port's pure-Python ``utils/keccak.py``,
+storage keys and hashP digests from its host Poseidon
+(``ops/poseidon_gl.host_permute``).
 
 Host-side equivalent of the reference fork_9 MainExecutor
 (src/main_sm/fork_9/main/main_executor.cpp): per step, read the RomLine at
@@ -31,9 +30,12 @@ import dataclasses
 from typing import Callable, Dict, List, Optional
 
 from ..fields import gl
+from ..ops.poseidon_gl import host_permute
+from ..state.hashdb import HashDB
 from ..utils.keccak import keccak256
 from ..utils.zkresult import ZkError, ZkResult
 from .rom import Rom, RomLine
+from .storage_executor import SmtAction
 
 P = gl.P
 MASK256 = (1 << 256) - 1
@@ -49,14 +51,6 @@ ZERO8 = [0] * 8
 
 # functions whose params are passed unevaluated (tracer event hooks)
 RAW_PARAM_FUNCTIONS = {"eventLog", "onOpcode", "storeLog"}
-
-FORK9_SLICE = "the fork_9 slice of the port (SMT, HashDB, storage SM)"
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet: it comes with "
-                              f"{FORK9_SLICE}")
-
 
 def fea_to_scalar(fea8) -> int:
     """8 field limbs -> 256-bit scalar; limbs must be < 2^32 (fea2scalar)."""
@@ -226,8 +220,11 @@ class HashState:
 
 
 class Context:
-    def __init__(self, rom: Rom, input_vars: Optional[dict] = None):
+    def __init__(self, rom: Rom, hashdb: HashDB, batch_uuid: str = "batch",
+                 input_vars: Optional[dict] = None):
         self.rom = rom
+        self.hashdb = hashdb
+        self.batch_uuid = batch_uuid
         self.regs = Registers()
         self.mem: Dict[int, List[int]] = {}
         self.vars: Dict[str, int] = {}
@@ -246,6 +243,26 @@ class Context:
         # the Main SM polynomial commitment (models/zkevm/main_sm_air.py)
         self.trace: Optional[list] = None
         self._hash_bytes = 0
+        # ECRecoverPrecalc memo (executor/ec_precalc.py): filled at the
+        # ecrecover_store_args label, cleared at ecrecover_end
+        self.ec_memo = None
+        self.ec_memo_hits = 0
+        # the storage key and SMT result of one step, shared by the free
+        # input and the op block of the same sRD/sWR line
+        self._skey_cache = None
+        self._sload_cache = None
+        self._sstore_cache = None
+
+
+def _storage_key(regs):
+    """SMT key from registers (main_executor.cpp:1080-1115): capacity =
+    Poseidon(C limbs || 0) (Kin0, the slot), key = Poseidon(A0..A5, B0, B1
+    || capacity) (Kin1: address and leaf type).  -> (kin0, kin1, key4)."""
+    kin0 = [int(v) for v in regs.C] + [0, 0, 0, 0]
+    cap = host_permute(kin0)[:4]
+    kin1 = [int(v) for v in regs.A[0:6]] + [int(regs.B[0]),
+                                            int(regs.B[1])] + cap
+    return kin0, kin1, tuple(host_permute(kin1)[:4])
 
 
 def _bump(ctx: "Context", name: str, amount: int = 1):
@@ -295,9 +312,10 @@ class MainExecutor:
         self.functions: Dict[str, Callable] = {}
         self._enc_cache: Dict[int, dict] = {}
         self._cmd_cache: Dict[int, Callable] = {}
-        # ECRecoverPrecalc hook point (reference main_executor.cpp:341-363);
-        # absent in toy/older ROMs -> hook disabled
+        # ECRecoverPrecalc hook points (reference main_executor.cpp:341-363);
+        # absent in toy/older ROMs -> hooks disabled
         self._ec_store_pc = rom.labels.get("ecrecover_store_args")
+        self._ec_end_pc = rom.labels.get("ecrecover_end")
 
     # ------------------------------------------------------------------
     # command-tree compilation: each ROM command tree compiles once into
@@ -411,8 +429,14 @@ class MainExecutor:
                 break
             if regs.zkPC == self._ec_store_pc:
                 # A=hash B=r C=s D=v at ecrecover_store_args
-                # (main_executor.cpp:341-354)
-                _not_ported("the ECRecover precalc")
+                # (main_executor.cpp:341-354); a None memo (invalid sig,
+                # edge case) just leaves the direct per-op math in place
+                from . import ec_precalc
+                ctx.ec_memo = ec_precalc.precalc(
+                    fea_to_scalar(regs.A), fea_to_scalar(regs.B),
+                    fea_to_scalar(regs.C), fea_to_scalar(regs.D))
+            elif regs.zkPC == self._ec_end_pc and ctx.ec_memo is not None:
+                ctx.ec_memo = None
             line = self.rom.program[regs.zkPC]
             ctx.counters.steps += 1
             ctx.step = step
@@ -669,8 +693,22 @@ class MainExecutor:
                                               fea_to_scalar(ctx.regs.A),
                                               fea_to_scalar(ctx.regs.B))
             return scalar_to_fea(res)
-        if line.flag("sRD") or line.flag("sWR"):
-            _not_ported("the storage free input (sRD/sWR)")
+        if line.flag("sRD"):
+            old_root = self._root_quad(ctx.regs.SR)
+            key = self._storage_key_cached(ctx)
+            res = ctx.hashdb.get(ctx.batch_uuid, old_root, key)
+            ctx._sload_cache = (old_root, key, res)
+            return scalar_to_fea(res.value)
+        if line.flag("sWR"):
+            # free input of an SSTORE is the NEW root (reference
+            # main_executor.cpp sWR free-input case: pHashDB->set there,
+            # result reused by the later op block)
+            old_root = self._root_quad(ctx.regs.SR)
+            key = self._storage_key_cached(ctx)
+            value = fea_to_scalar(ctx.regs.D)
+            res = ctx.hashdb.set(ctx.batch_uuid, old_root, key, value)
+            ctx._sstore_cache = (old_root, key, value, res)
+            return self._quad_to_sr8(res.new_root)
         for prefix, table in (("hashK", ctx.hash_k), ("hashP", ctx.hash_p),
                               ("hashS", ctx.hash_s)):
             if line.flag(prefix + "Digest"):
@@ -849,8 +887,68 @@ class MainExecutor:
                               f"memAlignRD mismatch at zkPC={line.zkpc}")
             ctx.required.mem_align.append(("RD", m0, m1, offset, v))
 
+    def _storage_key_cached(self, ctx):
+        """Per-step storage-key memo: the free-input derivation and the
+        op block of the SAME line both need it (registers cannot change
+        in between); kin0/kin1 are kept for the later PoseidonG request
+        recording."""
+        cached = ctx._skey_cache
+        if cached is not None and cached[0] == ctx.step:
+            return cached[1][2]
+        triple = _storage_key(ctx.regs)
+        ctx._skey_cache = (ctx.step, triple)
+        return triple[2]
+
+    @staticmethod
+    def _root_quad(sr8):
+        """8x32-bit SR limbs -> 4x64-bit SMT root quad."""
+        return tuple((int(sr8[2 * j]) | (int(sr8[2 * j + 1]) << 32))
+                     for j in range(4))
+
+    @staticmethod
+    def _quad_to_sr8(quad):
+        out = []
+        for v in quad:
+            out.append(int(v) & 0xFFFFFFFF)
+            out.append((int(v) >> 32) & 0xFFFFFFFF)
+        return out
+
     def _do_storage(self, ctx: Context, line: RomLine, op):
-        _not_ported("the storage operations (sRD/sWR)")
+        regs = ctx.regs
+        key = self._storage_key_cached(ctx)
+        # record the key-derivation permutations as PoseidonG requests
+        kin0, kin1, _k = ctx._skey_cache[1]
+        ctx.required.poseidon.append(kin0)
+        ctx.required.poseidon.append(kin1)
+        old_root = self._root_quad(regs.SR)
+        if line.flag("sWR"):
+            value = fea_to_scalar(regs.D)
+            cached = ctx._sstore_cache
+            if cached is not None and cached[0] == old_root \
+                    and cached[1] == key and cached[2] == value:
+                res = cached[3]
+                ctx._sstore_cache = None
+            else:
+                res = ctx.hashdb.set(ctx.batch_uuid, old_root, key, value)
+            regs.SR = self._quad_to_sr8(res.new_root)
+            ctx.required.storage.append(SmtAction(is_set=True,
+                                                  set_result=res))
+            # reference: incCounter = proofHashCounter + 2
+            # (main_executor.cpp:2557, applied to cntPoseidonG at :5322)
+            _bump(ctx, "poseidon_g", res.proof_hash_counter + 2)
+        else:
+            cached = ctx._sload_cache
+            if cached is not None and cached[0] == old_root \
+                    and cached[1] == key:
+                res = cached[2]
+                ctx._sload_cache = None
+            else:
+                res = ctx.hashdb.get(ctx.batch_uuid, old_root, key)
+            if fea_to_scalar(op) != res.value:
+                raise ZkError(ZkResult.PROVER_ERROR, "sRD value mismatch")
+            ctx.required.storage.append(SmtAction(is_set=False,
+                                                  get_result=res))
+            _bump(ctx, "poseidon_g", res.proof_hash_counter + 2)
 
     def _do_hash(self, ctx: Context, line: RomLine, prefix: str, table,
                  op, addr: int):

@@ -5,8 +5,8 @@ equivalent of the reference Rom/RomLine loading
 (src/main_sm/fork_9/main/rom.{hpp,cpp}, rom_line.hpp:15-117): a RomLine is a
 wide instruction word with ~24 input selectors, CONST/CONSTL immediates,
 jump controls, memory/hash/storage/arith/binary operation flags, register
-setters and freeInTag command trees.  The fork_9 ROM bundles
-(``Rom.load_fork``) come with the fork_9 slice of the port.
+setters and freeInTag command trees.  ``Rom.load_fork(9)`` reads the
+port's bundled fork_9 ROM (``data/roms/``).
 """
 
 from __future__ import annotations
@@ -88,6 +88,12 @@ class Rom:
         with open(path) as f:
             data = json.load(f)
         return Rom.from_json(data)
+
+    @staticmethod
+    def load_fork(fork_id: int = 9) -> "Rom":
+        """Load a fork's ROM from the port's bundle (``data/``)."""
+        from .. import data as bundles
+        return Rom.from_json(bundles.load_rom_json(fork_id))
 
     @staticmethod
     def from_json(data: dict) -> "Rom":

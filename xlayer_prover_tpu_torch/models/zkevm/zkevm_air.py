@@ -35,12 +35,12 @@ arithEq1-5 rows bind (kind, operands) tuples to the Arith EC circuit
 (arith_ec_sm) — with these, every Main operation class is circuit-bound.
 
 The port's own copy of ``xlayer_prover_tpu/models/zkevm/zkevm_air.py``.
-It builds Main, Binary, Memory, Arith, PoseidonG, PaddingPG, MemAlign
-and ArithEC with every binding among them.  The Storage and ClimbKey SMs
-(``storage_rom``) come with the fork_9 slice of the port, and the Keccak
-and SHA-256 chains (on by default from n_bits 18) with the slice of their
-gate kernels: asking for them raises ``NotImplementedError``.  The
-expanders run one after the other (they fill disjoint column ranges).
+It builds Main, Binary, Memory, Arith, PoseidonG, PaddingPG, MemAlign and
+ArithEC, and Storage and ClimbKey when a ``storage_rom`` is given, with
+every binding among them.  The Keccak and SHA-256 chains (on by default
+from n_bits 18) come with the slice of their gate kernels: asking for them
+raises ``NotImplementedError``.  The expanders run one after the other
+(they fill disjoint column ranges).
 """
 
 from __future__ import annotations
@@ -51,8 +51,9 @@ from typing import Optional
 import numpy as np
 
 from ...stark.air import AirBuilder, Const
-from . import (arith_ec_sm, arith_sm, binary_sm, main_sm_air, mem_align_sm,
-               memory_sm, padding_pg_sm, poseidon_g_sm)
+from . import (arith_ec_sm, arith_sm, binary_sm, climb_key_sm, main_sm_air,
+               mem_align_sm, memory_sm, padding_pg_sm, poseidon_g_sm,
+               storage_sm)
 
 
 @dataclasses.dataclass
@@ -65,6 +66,8 @@ class ZkevmLayout:
     padding_pg: padding_pg_sm.PaddingPGLayout
     arith_ec: arith_ec_sm.ArithEcLayout
     mem_align: Optional[mem_align_sm.MemAlignLayout] = None
+    storage: Optional[storage_sm.StorageLayout] = None
+    climb_key: Optional[climb_key_sm.ClimbKeyLayout] = None
 
 
 def build(rom, n_bits: int = 16, chunk_bits: int = 4, limb_bits: int = 16,
@@ -77,20 +80,24 @@ def build(rom, n_bits: int = 16, chunk_bits: int = 4, limb_bits: int = 16,
         with_keccak = n_bits >= 18
     if with_sha is None:
         with_sha = n_bits >= 18
-    for what, asked in (("the Storage and ClimbKey SMs (storage_rom)",
-                         storage_rom is not None),
-                        ("the Keccak chain", with_keccak),
+    for what, asked in (("the Keccak chain", with_keccak),
                         ("the SHA-256 chain", with_sha)):
         if asked:
             raise NotImplementedError(
                 f"{what} is not ported yet; build with n_bits < 18 or "
-                f"with_keccak=False, with_sha=False, storage_rom=None")
+                f"with_keccak=False, with_sha=False")
     b = AirBuilder("zkevm", n_bits, n_queries=n_queries, fri_fold_bits=3)
     main = main_sm_air.build(b, rom, n_bits, start_label, stop_label)
     binl = binary_sm.build(b, n_bits, chunk_bits)
     meml = memory_sm.build(b, n_bits)
     aril = arith_sm.build(b, 256, limb_bits)
     posl = poseidon_g_sm.build(b, n_bits)
+    storl = ckl = None
+    if storage_rom is not None:
+        storl = storage_sm.build(b, storage_rom, n_bits)
+        ckl = climb_key_sm.build(b, n_bits,
+                                 range_table=main.fixed["M_RANGE"])
+        storage_sm.bind(b, storl, ckl, posl)
     ppl = padding_pg_sm.build(b, n_bits)
     # memAlign factor table needs 2112 rows
     mal = mem_align_sm.build(b, n_bits) if n_bits >= 12 else None
@@ -159,6 +166,44 @@ def build(rom, n_bits: int = 16, chunk_bits: int = 4, limb_bits: int = 16,
         + [mw[f"sKey{j}"] for j in range(4)]
     b.plookup(f_cols, pg_table, f_sel=s_sel, t_sel=posl.fixed["PFIRST"])
 
+    # ---- Main -> Storage latch rows ----------------------------------
+    if storl is not None:
+        sw = storl.witness
+        two32 = Const(1 << 32)
+
+        def sr_quad(j):
+            return mw[f"SR{2 * j}"] + two32 * mw[f"SR{2 * j + 1}"]
+
+        def op_quad(j):
+            return mw[f"op{2 * j}"] + two32 * mw[f"op{2 * j + 1}"]
+
+        # sRD: {oldRoot, key, value, incCounter} in latchGet rows
+        f_cols = ([sr_quad(j) for j in range(4)]
+                  + [mw[f"sKey{j}"] for j in range(4)]
+                  + [mw[f"op{j}"] for j in range(8)]
+                  + [mw["incCnt"]])
+        t_cols = ([sw[f"OLD_ROOT{j}"] for j in range(4)]
+                  + [sw[f"RKEY{j}"] for j in range(4)]
+                  + [sw[f"VALUE_LOW{j}"] for j in range(4)]
+                  + [sw[f"VALUE_HIGH{j}"] for j in range(4)]
+                  + [sw["incCounter"] + Const(2)])
+        b.plookup(f_cols, t_cols, f_sel=mw["sRD"], t_sel=sw["latchGet"])
+
+        # sWR: {oldRoot, newRoot=op, key, value=D, incCounter}
+        f_cols = ([sr_quad(j) for j in range(4)]
+                  + [op_quad(j) for j in range(4)]
+                  + [mw[f"sKey{j}"] for j in range(4)]
+                  + [mw[f"D{j}"] for j in range(8)]
+                  + [mw["incCnt"]])
+        t_cols = ([sw[f"OLD_ROOT{j}"] for j in range(4)]
+                  + [sw[f"NEW_ROOT{j}"] for j in range(4)]
+                  + [sw[f"RKEY{j}"] for j in range(4)]
+                  + [sw[f"VALUE_LOW{j}"] for j in range(4)]
+                  + [sw[f"VALUE_HIGH{j}"] for j in range(4)]
+                  + [sw["incCounter"] + Const(2)])
+        b.plookup(f_cols, t_cols, f_sel=mw["sWR"], t_sel=sw["latchSet"])
+
+    # ---- Main -> PaddingPG (hashP chain) -----------------------------
     # ---- Main -> PaddingPG (hashP chain) -----------------------------
     pw = ppl.witness
     two32 = Const(1 << 32)
@@ -244,7 +289,7 @@ def build(rom, n_bits: int = 16, chunk_bits: int = 4, limb_bits: int = 16,
     air = b.compile()
     return air, ZkevmLayout(main=main, binary=binl, memory=meml, arith=aril,
                             poseidon=posl, padding_pg=ppl, mem_align=mal,
-                            arith_ec=ecl)
+                            arith_ec=ecl, storage=storl, climb_key=ckl)
 
 
 def fill_fixed(air, layout: ZkevmLayout) -> np.ndarray:
@@ -255,6 +300,9 @@ def fill_fixed(air, layout: ZkevmLayout) -> np.ndarray:
     memory_sm.fill_fixed(layout.memory, const_np)
     arith_sm.fill_fixed(layout.arith, const_np)
     poseidon_g_sm.fill_fixed(layout.poseidon, const_np)
+    if layout.storage is not None:
+        storage_sm.fill_fixed(layout.storage, const_np)
+        climb_key_sm.fill_fixed(layout.climb_key, const_np)
     padding_pg_sm.fill_fixed(layout.padding_pg, const_np)
     if layout.mem_align is not None:
         mem_align_sm.fill_fixed(layout.mem_align, const_np)
@@ -287,8 +335,14 @@ def gen_trace(air, layout: ZkevmLayout, records, final_regs, required):
         ma_actions = [mem_align_sm.MemAlignAction(op, m0, m1, off, v)
                       for (op, m0, m1, off, v) in required.mem_align]
         mem_align_sm.expand_into(layout.mem_align, ma_actions, cm1)
-    # PoseidonG absorbs the Main SM's requests and PaddingPG's blocks
+    # PoseidonG absorbs the Main SM's requests, then the Storage SM's
+    # hashes (whose climbs fill ClimbKey), then PaddingPG's blocks
     pg_actions = [list(r) for r in required.poseidon]
+    if layout.storage is not None:
+        spg, sck = storage_sm.expand_into(layout.storage,
+                                          list(required.storage), cm1)
+        pg_actions += [list(t[0]) for t in spg]
+        climb_key_sm.expand_into(layout.climb_key, sck, cm1)
     pg_actions += padding_pg_sm.expand_into(layout.padding_pg,
                                             list(required.padding_pg), cm1)
     poseidon_g_sm.expand_into(layout.poseidon, pg_actions, cm1)
