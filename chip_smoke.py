@@ -4,8 +4,11 @@
     python3 chip_smoke.py            # full run: builds the kernels, proves
                                      # the 2^20-row Binary SM AIR, the
                                      # mini-ROM's zkEVM composite AIR at
-                                     # 2^13 rows and devnet batch 0 through
-                                     # the fork_9 ROM at 2^16 rows
+                                     # 2^13 rows, devnet batch 0 through
+                                     # the fork_9 ROM at 2^16 rows, and
+                                     # lifts and aggregates devnet batch
+                                     # proofs through the recursion stack
+                                     # at 2^18 rows
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -43,9 +46,23 @@ Phases (any failure exits non-zero and prints no result line):
      a7_state_devnet/batch_proof_0vdev0_nb16_q4.json, and verify; a forged
      sRD value in the trace and a wrong new-state-root public must both be
      refused.  Before it, phase 2's kernels are held bit for bit at its
-     shapes (the cm1 leaves, 2^17 x 519; an LDE stage, 2^16 x 519).
-It prints a ``{"kernels": [...]}`` line (``launches``: the devnet path's
-counts; ``launches_by_path`` has phases 4 and 5 too) and ends with
+     shapes (the cm1 leaves, 2^17 x 519; an LDE stage, 2^16 x 519);
+  7. recursion, the main path of this slice: ``RecursionStack`` over
+     phase 6's devnet AIR and verkey (4 queries, the zkEVM chain link)
+     builds the recursive1/recursive2 pair of gate AIRs at 2^18 rows
+     (launches counted from 0), then (a) lifts the committed batch proof 0
+     to recursive1, (b) aggregates the committed recursive1_0 and
+     recursive1_1 (the chain link binds), (c) aggregates the committed
+     aggregate_01 and aggregate_23 (the non-leaf branch).  Each proof must
+     be byte-equal to its file in a7_state_devnet/ and verify (the root
+     through ``finalize(wrap="stark")``).  (d) A batch proof with a root
+     limb moved by one and a pair in the wrong order must raise ValueError
+     at witness time, and the root with a payload public changed must be
+     refused by the verifier.  Then the kernels are held bit for bit at
+     its shapes (the recursive1 cm1 leaves, 2^19 x 60; an LDE stage,
+     2^18 x 60).
+It prints a ``{"kernels": [...]}`` line (``launches``: the recursion
+path's counts; ``launches_by_path`` has phases 4-6 too) and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -68,6 +85,7 @@ ZKEVM_FIXTURE = os.path.join(REPO, "tests", "data",
 DEVNET_FIXTURE = os.path.join(REPO, "a7_state_devnet",
                               "batch_proof_0vdev0_nb16_q4.json")
 NEW_STATE_ROOT = 19                # publics[19:27]: newStateRoot limbs
+A7 = os.path.join(REPO, "a7_state_devnet")
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -361,10 +379,10 @@ def phase_binary(torch, case, trace_s: float):
     return launches
 
 
-def check_devnet_shapes(torch, air):
-    """poseidon_linear_hash on the devnet path's cm1 leaves and gl_mul on
-    one stage of its cm1 LDE, each bit for bit against its plain
-    version."""
+def check_shapes(torch, air, path: str) -> dict:
+    """poseidon_linear_hash on the cm1 leaves of `air` and gl_mul on one
+    stage of its cm1 LDE, each bit for bit against its plain version and
+    timed.  -> {kernel: {"shape", "ms", "bound_ms"}}"""
     from xlayer_prover_tpu_torch.fields import gl
     from xlayer_prover_tpu_torch.ops import poseidon_gl
 
@@ -375,7 +393,7 @@ def check_devnet_shapes(torch, air):
     err = _max_abs_err(poseidon_gl.linear_hash(leaves, width),
                        poseidon_gl._linear_hash_plain(leaves, width))
     _require(err == 0, "poseidon_linear_hash equals its plain version at "
-             "the devnet cm1 leaves")
+             f"the {path} cm1 leaves")
     ms = _cuda_ms(lambda: poseidon_gl.linear_hash(leaves, width), 5)
     del leaves
     m = (air.n_ext // 2) * width
@@ -384,7 +402,7 @@ def check_devnet_shapes(torch, air):
     tb = torch.randint(-(1 << 63), (1 << 63) - 1, (m,), dtype=torch.int64,
                        device=cuda)
     err = _max_abs_err(gl.gl_mul(ta, tb), gl._mul_plain(ta, tb))
-    _require(err == 0, "gl_mul equals its plain version at the devnet LDE "
+    _require(err == 0, f"gl_mul equals its plain version at the {path} LDE "
              "stage")
     mul_ms = _cuda_ms(lambda: gl.gl_mul(ta, tb), 20)
     del ta, tb
@@ -396,10 +414,13 @@ def check_devnet_shapes(torch, air):
                      (width + 4) * 8 * air.n_ext / HBM_BYTES_PER_S) * 1e3
     mul_bound = max(24 * m / HBM_BYTES_PER_S,
                     GL_MUL_MULS * m / int_mul_rate(torch)) * 1e3
-    print(f"kernel poseidon_linear_hash at [{air.n_ext}, {width}] (devnet "
+    print(f"kernel poseidon_linear_hash at [{air.n_ext}, {width}] ({path} "
           f"cm1 leaves): {ms:.4f} ms (bound {hash_bound:.4f} ms), bit-equal;"
-          f" gl_mul at [{m}] (devnet LDE stage): {mul_ms:.4f} ms (bound "
+          f" gl_mul at [{m}] ({path} LDE stage): {mul_ms:.4f} ms (bound "
           f"{mul_bound:.4f} ms), bit-equal", flush=True)
+    return {"poseidon_linear_hash": {"shape": [air.n_ext, width], "ms": ms,
+                                     "bound_ms": hash_bound},
+            "gl_mul": {"shape": [m], "ms": mul_ms, "bound_ms": mul_bound}}
 
 
 def phase_zkevm(torch):
@@ -472,7 +493,7 @@ def phase_devnet(torch):
           f"ev_map={len(air.ev_map)} fri_steps={air.fri_steps} steps="
           f"{ctx.counters.steps} storage_actions={len(ctx.required.storage)}"
           f" trace_s={trace_s:.3f}", flush=True)
-    check_devnet_shapes(torch, air)
+    check_shapes(torch, air, "devnet")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -524,7 +545,125 @@ def phase_devnet(torch):
               "rows_per_s": air.n / prove_s, "peak_bytes": peak,
               "launches": launches}
     print("devnet " + json.dumps(report), flush=True)
-    return launches
+    return launches, engine
+
+
+def _read_a7(name: str) -> str:
+    with open(os.path.join(A7, f"{name}_nb16_q4.json")) as f:
+        return f.read()
+
+
+def phase_recursion(torch, engine):
+    """Recursion over devnet batch 0: the pair of gate AIRs, three proofs
+    byte-equal to the committed cascade, three refusals; launches counted
+    from 0 over the pair build and the three proofs."""
+    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.recursion import gate_air
+    from xlayer_prover_tpu_torch.recursion.stack import (RecursionStack,
+                                                         RecursiveProof,
+                                                         zkevm_chain_spec)
+    from xlayer_prover_tpu_torch.stark import verifier
+    from xlayer_prover_tpu_torch.stark.proof import StarkProof
+
+    air = engine.air
+    link, out_map = zkevm_chain_spec(air.n_publics)
+    with open(DEVNET_FIXTURE) as f:
+        batch = StarkProof.from_json(json.load(f)["proof"])
+    committed = {name: _read_a7(name) for name in (
+        "recursive1_0", "recursive1_1", "aggregate_01", "aggregate_23",
+        "aggregate_root")}
+    loaded = {k: RecursiveProof.from_json(v) for k, v in committed.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    stack = RecursionStack(air, engine.setup().verkey, n_queries=4,
+                           link=link, out_map=out_map)
+    t0 = time.perf_counter()
+    rec1, rec2 = stack.rec1(), stack.rec2()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for name, eng in (("rec1", rec1), ("rec2", rec2)):
+        g = eng.air
+        print(f"recursion {name}: n_bits={g.n_bits} cm1={g.cm1_width} "
+              f"cm3={g.cm3_width} const={g.const_width} publics="
+              f"{g.n_publics} constraints={len(g.constraints)} ev_map="
+              f"{len(g.ev_map)} fri_steps={g.fri_steps} rows_used="
+              f"{eng.layout.n_rows_used} {eng.tracer.stats()}", flush=True)
+
+    proofs, timings = {}, {}
+
+    def stage(name, fn, fixture):
+        t = {}
+        t0 = time.perf_counter()
+        rp = fn(t)
+        torch.cuda.synchronize()
+        t["total_s"] = time.perf_counter() - t0
+        _require(json.dumps(rp.to_json()) == committed[fixture],
+                 f"the {name} proof on the card is byte-equal to "
+                 f"a7_state_devnet/{fixture}_nb16_q4.json")
+        t0 = time.perf_counter()
+        _require(stack.verify(rp), f"the {name} proof verifies")
+        t["verify_s"] = time.perf_counter() - t0
+        proofs[name], timings[name] = rp, t
+        print(f"recursion {name}: byte-equal to a7_state_devnet/{fixture}"
+              f"_nb16_q4.json, verifies ({t['total_s']:.3f} s)", flush=True)
+
+    stage("lift", lambda t: stack.lift(batch, t), "recursive1_0")
+    stage("leaf_leaf", lambda t: stack.aggregate(
+        loaded["recursive1_0"], loaded["recursive1_1"], t), "aggregate_01")
+    stage("agg_agg", lambda t: stack.aggregate(
+        loaded["aggregate_01"], loaded["aggregate_23"], t), "aggregate_root")
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    root = proofs["agg_agg"]
+    _require(stack.finalize(root, wrap="stark") is root,
+             "finalize(wrap='stark') accepts the root")
+    _require(root.proof.publics[:4] == rec2.verkey,
+             "the root carries the recursive2 verkey")
+
+    # (d) refusals
+    def refused_at_witness(fn, what: str) -> str:
+        try:
+            fn()
+        except ValueError as e:
+            return f"ValueError ({e})"
+        raise RuntimeError(f"{what} was accepted")
+
+    bad = StarkProof.from_json(batch.to_json())
+    bad.roots[0][0] = (bad.roots[0][0] + 1) % gate_air.P
+    print("recursion: batch proof with a root limb moved refused: "
+          + refused_at_witness(lambda: stack.lift(bad),
+                               "a batch proof with a moved root limb"),
+          flush=True)
+    print("recursion: recursive1_1 + recursive1_0 (link broken) refused: "
+          + refused_at_witness(lambda: stack.aggregate(
+              loaded["recursive1_1"], loaded["recursive1_0"]),
+              "an aggregation in the wrong order"), flush=True)
+    forged = RecursiveProof.from_json(root.to_json())
+    forged.proof.publics[4 + NEW_STATE_ROOT] = \
+        (forged.proof.publics[4 + NEW_STATE_ROOT] + 1) % gate_air.P
+    try:
+        accepted = stack.verify(forged)
+    except verifier.VerifyError as e:
+        print(f"recursion: root with a payload public changed refused: "
+              f"VerifyError ({e})", flush=True)
+    else:
+        _require(not accepted, "a root with a changed payload public is "
+                 "refused")
+        print("recursion: root with a payload public changed refused",
+              flush=True)
+
+    shapes = check_shapes(torch, rec1.air, "recursive1")
+    print(device.smi("name,power.limit"), flush=True)
+    report = {"n_bits": rec1.air.n_bits, "build_s": build_s,
+              "pair_s": stack.timings, "proofs_s": timings,
+              "peak_bytes": peak, "launches": launches,
+              "tracer_stats": {"rec1": rec1.tracer.stats(),
+                               "rec2": rec2.tracer.stats()}}
+    print("recursion " + json.dumps(report), flush=True)
+    return launches, shapes
 
 
 def main() -> int:
@@ -560,17 +699,19 @@ def main() -> int:
     by_path = {"binary_sm_2e20": phase_binary(torch, case, trace_s)}
     del case
     by_path["zkevm_2e13"] = phase_zkevm(torch)
-    by_path["devnet_2e16"] = phase_devnet(torch)
+    by_path["devnet_2e16"], engine = phase_devnet(torch)
+    by_path["recursion_2e18"], at_rec1 = phase_recursion(torch, engine)
     for path, launches in by_path.items():
         for name in MAIN_PATH_KERNELS:
             _require(launches[name] > 0, f"{name} launched on the {path} "
                      f"path")
     for r in rows:
-        r["launches"] = by_path["devnet_2e16"][r["name"]]
+        r["launches"] = by_path["recursion_2e18"][r["name"]]
         r["launches_by_path"] = {p: v[r["name"]] for p, v in by_path.items()}
+        r["at_recursion_shape"] = at_rec1.get(r["name"])
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "plain_shape", "launches_by_path"]
+            "plain_shape", "launches_by_path", "at_recursion_shape"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(f"total_s {time.perf_counter() - t_all:.2f}", flush=True)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of one port proof goes, on one GPU.
 
-    python3 profile_proof.py [--case binary|zkevm|devnet] [--out profile.json]
+    python3 profile_proof.py [--case binary|zkevm|devnet|recursion]
+                             [--out profile.json]
 
 Builds the kernels, makes one of the cases that ``chip_smoke.py`` proves
 (``binary``: the seeded 2^20-row Binary SM case, ``binary_sm.seeded_case``;
 ``zkevm``: the mini-ROM executed into the 2^16-row zkEVM composite AIR,
 ``mini_rom.execute(16)``; ``devnet``: devnet batch 0 through the fork_9
-ROM with the Storage SM, ``utils/devnet``), then:
+ROM with the Storage SM, ``utils/devnet``; ``recursion``: the recursive1
+gate AIR over the devnet AIR at 2^18 rows, its witness the lift of the
+committed batch proof 0), then:
   1. Setup.build and a first gen_proof (cold: twiddle tables, library
      loads), timed per round;
   2. a second gen_proof, timed per round, that must be byte-equal to the
@@ -40,10 +43,36 @@ SPLIT = {"poseidon_permute": "poseidon_permute_kernel",
          "copies": "direct_copy_kernel"}
 
 
+def recursion_case(devnet):
+    """The recursive1 gate AIR over the devnet AIR and verkey (4 queries,
+    2^18 rows), with its constant columns and the witness of lifting the
+    committed batch proof 0.  -> (air, const, cm1, publics)"""
+    import numpy as np
+
+    from xlayer_prover_tpu_torch.recursion import gate_air
+    from xlayer_prover_tpu_torch.recursion.engine import Recursive1
+    from xlayer_prover_tpu_torch.recursion.verifier_circuit import \
+        flatten_proof
+    from xlayer_prover_tpu_torch.stark.proof import StarkProof
+
+    engine = devnet.devnet_prover()
+    rec1 = Recursive1(engine.air, engine.setup().verkey, n_queries=4)
+    with open(os.path.join(REPO, "a7_state_devnet",
+                           "batch_proof_0vdev0_nb16_q4.json")) as f:
+        batch = StarkProof.from_json(json.load(f)["proof"])
+    air, layout = rec1.air, rec1.layout
+    const_np = np.zeros((air.n, air.const_width), dtype=np.uint64)
+    gate_air.fill_fixed(layout, const_np)
+    cm1 = np.zeros((air.n, air.cm1_width), dtype=np.uint64)
+    vals = gate_air.fill_witness(layout, flatten_proof(engine.air, batch),
+                                 cm1)
+    return air, const_np, cm1, gate_air.publics_of(layout, vals)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--case", choices=("binary", "zkevm", "devnet"),
-                    default="binary")
+    ap.add_argument("--case", choices=("binary", "zkevm", "devnet",
+                                       "recursion"), default="binary")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args()
 
@@ -72,11 +101,13 @@ def main() -> int:
         ex, res = mini_rom.execute(16)
         air, const_np, cm1, publics = ex.air, res.const_np, res.cm1_np, \
             res.publics
-    else:
+    elif args.case == "devnet":
         engine = devnet.devnet_prover()
         res = engine.execute_only(devnet.build_devnet_inputs(engine, 1)[0])
         air, const_np, cm1, publics = engine.air, res.const_np, res.cm1_np, \
             res.publics
+    else:
+        air, const_np, cm1, publics = recursion_case(devnet)
     trace_s = time.perf_counter() - t0
 
     def timed_proof(setup):

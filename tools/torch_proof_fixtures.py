@@ -203,11 +203,60 @@ def devnet_case(pkg: str):
             res.publics)
 
 
+def fib_inner(pkg: str):
+    """The fib toy (n_bits 4, 2 queries) proven by `pkg`'s prover (the
+    port's on the CPU): the inner proof of the JAX package's
+    tests/test_recursion.py.  -> (air, setup, proof)"""
+    fib = importlib.import_module(f"{pkg}.models.toy.fib")
+    prover = importlib.import_module(f"{pkg}.stark.prover")
+    air = fib.build_air(n_bits=4, n_queries=2)
+    const_np, cm1, publics = fib.gen_trace(air)
+    kw = {} if pkg == "xlayer_prover_tpu" else {"device": "cpu"}
+    setup = prover.Setup.build(air, const_np, **kw)
+    return air, setup, prover.gen_proof(setup, cm1, publics)
+
+
+def rec1_fib_case(pkg: str, inner=None):
+    """Recursive1 over the fib inner proof at its own minimal domain
+    (2^13 rows, 4 queries): the gate AIR of the traced fib verifier with
+    its constant columns and witness.  `inner` is (verkey, proof JSON) of
+    the inner proof; None proves it with `pkg` (``fib_inner``).  -> (air,
+    layout, const, cm1, publics)"""
+    engine = importlib.import_module(f"{pkg}.recursion.engine")
+    gate_air = importlib.import_module(f"{pkg}.recursion.gate_air")
+    vc = importlib.import_module(f"{pkg}.recursion.verifier_circuit")
+    if inner is None:
+        air, setup, proof = fib_inner(pkg)
+        verkey = setup.verkey
+    else:
+        fib = importlib.import_module(f"{pkg}.models.toy.fib")
+        proof_mod = importlib.import_module(f"{pkg}.stark.proof")
+        air = fib.build_air(n_bits=4, n_queries=2)
+        verkey, proof = inner[0], proof_mod.StarkProof.from_json(inner[1])
+    tracer, _pw = engine.Recursive1.trace(air, verkey)
+    gair, layout = gate_air.build(tracer, n_queries=4)
+    kw = {} if pkg == "xlayer_prover_tpu" else {"device": "cpu"}
+    const_np = np.zeros((gair.n, gair.const_width), dtype=np.uint64)
+    gate_air.fill_fixed(layout, const_np, **kw)
+    cm1 = np.zeros((gair.n, gair.cm1_width), dtype=np.uint64)
+    vals = gate_air.fill_witness(layout, vc.flatten_proof(air, proof), cm1,
+                                 **kw)
+    return gair, layout, const_np, cm1, gate_air.publics_of(layout, vals)
+
+
 CASES = {"binary_sm_n10_q4": binary_sm_case,
          "composite_n11_q4": composite_case,
          "zkevm_mini_n13_q4": zkevm_mini_case,
          "storage_n11_q8": storage_case,
-         "devnet_batch0_n16_q4": devnet_case}
+         "devnet_batch0_n16_q4": devnet_case,
+         "rec1_fib_n13_q4": rec1_fib_case}
+# the verkey (constant-tree root) of the devnet AIR at
+# DEVNET_GEOMETRY: the port's Setup.build on the CPU gave these limbs (the
+# slow tests/test_torch_recursion.py::test_devnet_verkey_is_the_setup_root
+# builds it again); the verifier circuit replays the committed devnet
+# proof only under the verkey that proof was made with
+DEVNET_VERKEY = [14832465569959553833, 11155289007394171011,
+                 2647493096237404943, 5862035215467919731]
 # committed elsewhere, as {"level": 0, "proof": <to_json()>}: read, never
 # rewritten
 IN_PLACE = {"devnet_batch0_n16_q4": os.path.join(

@@ -43,6 +43,22 @@ def _host_pow3(a, e: int):
     return r
 
 
+def _host_inv3(a):
+    """Inverse via norm: a^-1 = a^(p+p^2) / N(a); 0 maps to 0."""
+    f1, f2 = _frobenius_matrices()
+
+    def apply(mat, v):
+        out = [0, 0, 0]
+        for i in range(3):
+            for k in range(3):
+                out[k] = (out[k] + v[i] * mat[i][k]) % P
+        return out
+
+    t = _host_mul3(apply(f1, a), apply(f2, a))
+    n_inv = pow(_host_mul3(a, t)[0], P - 2, P)
+    return [(c * n_inv) % P for c in t]
+
+
 @functools.lru_cache(maxsize=None)
 def _frobenius_matrices():
     """Rows i of F1/F2 = coefficients of x^(i*p) / x^(i*p^2) mod (x^3-x-1)."""

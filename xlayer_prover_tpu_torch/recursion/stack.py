@@ -1,0 +1,130 @@
+"""RecursionStack: the proof cascade manager.
+
+The port's own copy of ``xlayer_prover_tpu/recursion/stack.py``, over the
+GL commitment scheme: ``finalize(wrap="groth16")`` (RecursiveF, the BN254
+final circuit and Groth16) is not ported.
+
+Mirrors the reference cascade (prover.cpp:392-825): batch STARK ->
+recursive1 (verifier-as-circuit compression) -> recursive2 aggregation.
+Recursive2 is SHAPE-STABLE (engine.py): one engine aggregates recursive1
+proofs, its own proofs, or a mix, so aggregation trees of any depth and
+shape (incl. unbalanced ones — 3 or 5 batches) use exactly two circuits,
+like the reference's recursive1/recursive2 pair
+(test/service/aggregator/aggregator_service.cpp:18-240).
+
+Soundness chain: every proof carries the verkey its non-leaf children
+were verified against in publics[0:4] (0000 marks a recursive1 leaf);
+``verify``/``finalize`` pin the root's carried verkey to the recursive2
+engine's own key, which transitively fixes every interior node (the
+reference's rootC public).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+from ..stark.proof import StarkProof
+from .engine import Recursive1, Recursive2, build_recursion_pair
+
+
+def zkevm_chain_spec(n_publics: int):
+    """(link, out_map) for the zkEVM publics layout (prover.cpp:494-543):
+    the chain rule pins p1.newStateRoot == p2.oldStateRoot in-circuit and
+    the aggregate exposes old* from p1 and new* from p2 — recursive2's
+    semantics for both the 27-slot (legacy) and 44-slot layouts."""
+    if n_publics not in (27, 44):
+        raise ValueError(f"zkEVM publics are 27 or 44 slots, not "
+                         f"{n_publics}")
+    link = [(19 + k, k) for k in range(8)]
+    out_map = [("p1", i) for i in range(19)] + \
+              [("p2", i) for i in range(19, n_publics)]
+    return link, out_map
+
+
+@dataclasses.dataclass
+class RecursiveProof:
+    level: int            # 1 = recursive1 output, 2 = aggregation output
+    proof: StarkProof     # StarkProof of the standard-shape gate air
+
+    def to_json(self):
+        return {"level": self.level, "proof": self.proof.to_json()}
+
+    @staticmethod
+    def from_json(blob) -> "RecursiveProof":
+        """From ``to_json()``'s dict or its JSON text (the cascade's
+        stage files, ``tools/run_a7_cascade.py``)."""
+        if isinstance(blob, str):
+            blob = json.loads(blob)
+        return RecursiveProof(level=blob["level"],
+                              proof=StarkProof.from_json(blob["proof"]))
+
+
+class RecursionStack:
+    def __init__(self, batch_air, batch_verkey, n_queries: int = 8,
+                 link=None, out_map=None, device=None):
+        self.batch_air = batch_air
+        self.batch_verkey = list(batch_verkey)
+        self.n_queries = n_queries
+        self.link = link
+        self.out_map = out_map
+        self.device = device
+        self.timings: dict = {}    # the pair build's seconds
+        self._rec1: Recursive1 = None
+        self._rec2: Recursive2 = None
+
+    # -- engines ---------------------------------------------------------
+    def _ensure_pair(self):
+        if self._rec1 is None:
+            self._rec1, self._rec2 = build_recursion_pair(
+                self.batch_air, self.batch_verkey,
+                n_queries=self.n_queries, link=self.link,
+                out_map=self.out_map, device=self.device,
+                timings=self.timings)
+
+    def rec1(self) -> Recursive1:
+        self._ensure_pair()
+        return self._rec1
+
+    def rec2(self) -> Recursive2:
+        self._ensure_pair()
+        return self._rec2
+
+    # -- operations ------------------------------------------------------
+    def lift(self, proof, timings: dict | None = None) -> RecursiveProof:
+        """Raw batch StarkProof -> recursive1; recursive proofs pass."""
+        if isinstance(proof, RecursiveProof):
+            return proof
+        return RecursiveProof(level=1,
+                              proof=self.rec1().prove(proof, timings))
+
+    def aggregate(self, p1: RecursiveProof, p2: RecursiveProof,
+                  timings: dict | None = None) -> RecursiveProof:
+        """Aggregate two recursive proofs — levels may differ (the
+        shape-stable circuit dispatches per child on the leaf marker)."""
+        return RecursiveProof(level=2, proof=self.rec2().prove(
+            p1.proof, p2.proof, timings))
+
+    def verify(self, rp: RecursiveProof) -> bool:
+        if rp.level == 1:
+            return self.rec1().verify(rp.proof)
+        return self.rec2().verify(rp.proof)
+
+    def finalize(self, proof, wrap: str = "stark"):
+        """Final-stage packaging (reference genFinalProof,
+        prover.cpp:827-980).
+
+        wrap="stark": verify (incl. the root carried-verkey pin) and
+        return the terminal recursive proof.  wrap="groth16" (RecursiveF,
+        the BN254 final circuit and Groth16) is not ported."""
+        if wrap == "groth16":
+            raise NotImplementedError(
+                "finalize(wrap='groth16') needs RecursiveF over "
+                "BN128Scheme, the final circuit and Groth16, which are not "
+                "ported yet (ROADMAP.md queue 1, items 13b-13c)")
+        if wrap != "stark":
+            raise ValueError(f"unknown wrap {wrap!r}")
+        rp = self.lift(proof)
+        if not self.verify(rp):
+            raise ValueError("the recursive proof does not verify")
+        return rp
