@@ -60,9 +60,28 @@ Phases (any failure exits non-zero and prints no result line):
      at witness time, and the root with a payload public changed must be
      refused by the verifier.  Then the kernels are held bit for bit at
      its shapes (the recursive1 cm1 leaves, 2^19 x 60; an LDE stage,
-     2^18 x 60).
-It prints a ``{"kernels": [...]}`` line (``launches``: the recursion
-path's counts; ``launches_by_path`` has phases 4-6 too) and ends with
+     2^18 x 60);
+  8. the final stage, the main path of this slice:
+     ``stack.finalize(root, wrap="groth16", snark=False)`` over phase 7's
+     aggregate root builds RecursiveF (recursive1 over the BN128
+     commitment scheme: Poseidon-BN254 arity-16 trees, TranscriptBN128)
+     over recursive2, proves it and builds the BN254 final circuit's R1CS
+     (launches counted from 0).  The RecursiveF proof must be byte-equal
+     to the JAX package's, committed as
+     tests/data/recF_devnet_root_q4.proof.json, and verify; the proof with
+     one Fr root moved and with a payload public changed must be refused;
+     the R1CS witness must satisfy it and its publics equal the 52
+     ``groth16_publics`` of PROOF_a7_cascade_devnet.json.  Then the BN254
+     kernels are held bit for bit at its shapes (the cm1 leaves and the
+     first tree level).
+Phase 2 also holds the two Poseidon-BN254 kernels against their plain
+versions: poseidon_bn254_permute at every width t = 2..17 (edge inputs 0,
+1, r - 1, r, r + 1, 2^256 - 1 and inputs above r included) and on 2^16 of
+the 2^20 t = 17 states it is timed on; poseidon_bn254_leaf_hash at widths
+1, 3, 4, 5, 6, 48, 50, 60 and 519 and at the 2^17 x 60 rows it is timed on.
+It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
+final path, this slice's main path, 0 included; ``launches_by_path`` has
+every path's) and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -77,9 +96,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 INT_MUL_PER_CLK_SM = 64            # 32-bit integer multiplies, cc 9.0
 GL_MUL_MULS = 4                    # 32x32->64 partial products/element
+FR_PROD32 = 2 * 64                 # 32-bit multiplies of a full product
+                                   # of two 8 x 32-bit words Fr values
+FR_SQR32 = 2 * 36                  # of a square (36 distinct word pairs)
+FR_REDC32 = 8 * 17                 # of one Montgomery reduction
 SEED = 20261016                    # kernel inputs of phase 2
-# the kernels that every Setup.build + gen_proof launches
-MAIN_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
+# the kernels that every Setup.build + gen_proof of a path launches
+GL_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
+PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
+                "zkevm_2e13": GL_PATH_KERNELS,
+                "devnet_2e16": GL_PATH_KERNELS,
+                "recursion_2e18": GL_PATH_KERNELS,
+                "final_2e16": ("poseidon_bn254_leaf_hash",
+                               "poseidon_bn254_permute", "gl_mul")}
+RECF_FIXTURE = os.path.join(REPO, "tests", "data",
+                            "recF_devnet_root_q4.proof.json")
+CASCADE_RECORD = os.path.join(REPO, "PROOF_a7_cascade_devnet.json")
 ZKEVM_FIXTURE = os.path.join(REPO, "tests", "data",
                              "zkevm_mini_n13_q4.proof.json")
 DEVNET_FIXTURE = os.path.join(REPO, "a7_state_devnet",
@@ -146,6 +178,45 @@ def poseidon_mul32() -> int:
                  for m00, v, w in sf.sparse)
     sboxes = pc.WIDTH * pc.FULL_ROUNDS + pc.PARTIAL_ROUNDS
     return (pc.FULL_ROUNDS - 1) * dense + pre + sparse + sboxes * 14
+
+
+def bn254_mul32(t: int) -> int:
+    """32-bit multiplies of one Poseidon-BN254 permutation of width t in
+    its fewest-multiply form, over the compressed rounds the kernels run:
+    the x^5 S-box is two squares and a product, each reduced; a
+    dot-product output (a matrix row, a partial round's s0) is t
+    unreduced products and one reduction; a partial round's t - 1 lane
+    updates are a reduced product each.  8 full rounds of t S-boxes and
+    t dot products, then each partial round's S-box, s0 and lane
+    updates.  The Montgomery conversions in and out are left out."""
+    from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
+    sbox = 2 * (FR_SQR32 + FR_REDC32) + FR_PROD32 + FR_REDC32
+    dot = t * FR_PROD32 + FR_REDC32
+    full = t * sbox + t * dot
+    partial = sbox + dot + (t - 1) * (FR_PROD32 + FR_REDC32)
+    return pbn.N_ROUNDS_F * full + pbn.N_ROUNDS_P[t - 2] * partial
+
+
+def leaf_mul32(width: int) -> int:
+    """32-bit multiplies of one BN128 leaf hash of a row of `width`
+    Goldilocks words (none for a row of width <= 4: its packing)."""
+    if width <= 4:
+        return 0
+    n_fr = -(-width // 3)
+    full, tail = divmod(n_fr, 16)
+    return full * bn254_mul32(17) + (bn254_mul32(tail + 1) if tail else 0)
+
+
+def bn254_permute_work(n: int) -> dict:
+    """Bytes and 32-bit multiplies of poseidon_bn254_permute over n
+    states of t = 17: each state read and written once."""
+    return {"bytes": 2 * 17 * 32 * n, "ops": bn254_mul32(17) * n}
+
+
+def bn254_leaf_work(m: int, width: int) -> dict:
+    """Bytes and 32-bit multiplies of poseidon_bn254_leaf_hash over m rows
+    of `width` words: each row read once, each Fr digest written once."""
+    return {"bytes": (width + 4) * 8 * m, "ops": leaf_mul32(width) * m}
 
 
 def int_mul_rate(torch) -> float:
@@ -279,17 +350,123 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
     torch.cuda.empty_cache()
 
     for r in rows:
-        t_bytes = r.pop("bytes") / HBM_BYTES_PER_S * 1e3
-        t_ops = r.pop("ops") / int_rate * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        r["library_ms"] = None
-        print(f"kernel {r['name']} at {r['shape']}: {r['ms']:.4f} ms "
-              f"(plain {r['plain_ms']:.3f} ms at {r['plain_shape']}, "
-              f"bound {r['bound_ms']:.4f} ms "
-              f"by {r['bound_by']}; int-mul rate {int_rate:.4g}/s)",
-              flush=True)
+        _bound(r, int_rate)
     return rows
+
+
+def phase_bn254_kernels(torch, rng):
+    """The two Poseidon-BN254 kernels against their plain versions, bit for
+    bit, and timed (phase 2)."""
+    import numpy as np
+
+    from xlayer_prover_tpu_torch.fields import gl
+    from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
+
+    cuda = torch.device("cuda")
+    int_rate = int_mul_rate(torch)
+    fr = pbn.P
+    edges = pbn.to_limbs([0, 1, fr - 1, fr, fr + 1, (1 << 256) - 1])
+
+    def fr_states(n, t):
+        """Seeded 256-bit inputs (most above r, which the kernel reduces;
+        every other state below 2^252) with the edge states first."""
+        w = rng.integers(0, (1 << 64) - 1, size=(n, t, 4), dtype=np.uint64,
+                         endpoint=True)
+        w[1::2, :, 3] >>= np.uint64(4)
+        w[:len(edges)] = edges[:, None, :]
+        return w
+
+    err = 0
+    for t in range(2, 18):
+        w = fr_states(4096, t)
+        x = gl.from_u64_np(w, cuda)
+        got = pbn.permute(x, t)
+        err = max(err, _max_abs_err(got, pbn._permute_plain(x, t)))
+        host = [v for k in (3, 7) for v in pbn.host_permute(
+            pbn.from_limbs(w[k]))]
+        _require(pbn.from_limbs(gl.to_u64_np(got[[3, 7]])) == host,
+                 f"poseidon_bn254_permute t={t} equals host_permute")
+    n = 1 << 20
+    x = gl.from_u64_np(fr_states(n, 17), cuda)
+    head = x[:1 << 16]
+    err = max(err, _max_abs_err(pbn.permute(head, 17),
+                                pbn._permute_plain(head, 17)))
+    _require(err == 0, "poseidon_bn254_permute equals its plain version")
+    ms = _cuda_ms(lambda: pbn.permute(x, 17), 3)
+    plain_ms = _cuda_ms(lambda: pbn._permute_plain(head, 17), 1)
+    rows = [{
+        "name": "poseidon_bn254_permute", "route": "cuda",
+        "source": "xlayer_prover_tpu_torch/csrc/poseidon_bn254.cu",
+        "replaces": "xlayer_prover_tpu/native/posbn.cpp:139",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bn254_permute_work(n), "shape": [n, 17, 4],
+        "plain_shape": [1 << 16, 17, 4]}]
+    del x, head
+    torch.cuda.empty_cache()
+
+    err = 0
+    for width in (1, 3, 4, 5, 6, 48, 50, 60, 519):
+        r = rng.integers(0, (1 << 64) - 1, size=(4096, width),
+                         dtype=np.uint64, endpoint=True)
+        r[:6] = np.array([0, 1, gl.P - 1, gl.P, 1 << 63, (1 << 64) - 1],
+                         dtype=np.uint64)[:, None]
+        t = gl.from_u64_np(r, cuda)
+        got = pbn.leaf_hash(t, width)
+        err = max(err, _max_abs_err(got, pbn._leaf_hash_plain(t, width)))
+        _require(pbn.from_limbs(gl.to_u64_np(got[9:10])) ==
+                 [pbn.leaf_hash_host([int(v) for v in r[9]])],
+                 f"poseidon_bn254_leaf_hash width {width} equals the host "
+                 "leaf hash")
+    m, width = 1 << 17, 60
+    leaves = torch.randint(-(1 << 63), (1 << 63) - 1, (m, width),
+                           dtype=torch.int64, device=cuda)
+    got = pbn.leaf_hash(leaves, width)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = pbn._leaf_hash_plain(leaves, width)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = max(err, _max_abs_err(got, ref))
+    _require(err == 0, "poseidon_bn254_leaf_hash equals its plain version")
+    del got, ref
+    ms = _cuda_ms(lambda: pbn.leaf_hash(leaves, width), 3)
+    rows.append({
+        "name": "poseidon_bn254_leaf_hash", "route": "cuda",
+        "source": "xlayer_prover_tpu_torch/csrc/poseidon_bn254.cu",
+        "replaces": "xlayer_prover_tpu/native/posbn.cpp:215",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **bn254_leaf_work(m, width), "shape": [m, width],
+        "plain_shape": [m, width]})
+    del leaves
+    torch.cuda.empty_cache()
+    for r in rows:
+        _bound(r, int_rate)
+    return rows
+
+
+def _bound_ms(work: dict, int_rate: float) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") of a kernel's work: its bytes
+    over the memory rate or its 32-bit multiplies over the multiply rate,
+    whichever takes longer."""
+    t_bytes = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = work["ops"] / int_rate * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def _bound(r: dict, int_rate: float):
+    """bound_ms and bound_by of a kernel row from its bytes and 32-bit
+    multiplies, printed with its times."""
+    r["bound_ms"], r["bound_by"] = _bound_ms(
+        {"bytes": r.pop("bytes"), "ops": r.pop("ops")}, int_rate)
+    r["library_ms"] = None
+    print(f"kernel {r['name']} at {r['shape']}: {r['ms']:.4f} ms "
+          f"(plain {r['plain_ms']:.3f} ms at {r['plain_shape']}, "
+          f"bound {r['bound_ms']:.4f} ms "
+          f"by {r['bound_by']}; int-mul rate {int_rate:.4g}/s)",
+          flush=True)
 
 
 def phase_fib(torch):
@@ -663,6 +840,124 @@ def phase_recursion(torch, engine):
               "tracer_stats": {"rec1": rec1.tracer.stats(),
                                "rec2": rec2.tracer.stats()}}
     print("recursion " + json.dumps(report), flush=True)
+    return launches, shapes, stack, root
+
+
+def check_bn254_shapes(torch, air) -> dict:
+    """poseidon_bn254_leaf_hash on the cm1 leaves of `air` and
+    poseidon_bn254_permute on its first tree level, each bit for bit
+    against its plain version and timed.  -> {kernel: {"shape", "ms",
+    "bound_ms"}}"""
+    from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
+
+    cuda = torch.device("cuda")
+    rate = int_mul_rate(torch)
+    n, width = air.n_ext, air.cm1_width
+    leaves = torch.randint(-(1 << 63), (1 << 63) - 1, (n, width),
+                           dtype=torch.int64, device=cuda)
+    _require(_max_abs_err(pbn.leaf_hash(leaves, width),
+                          pbn._leaf_hash_plain(leaves, width)) == 0,
+             "poseidon_bn254_leaf_hash equals its plain version at the "
+             "RecursiveF cm1 leaves")
+    leaf_ms = _cuda_ms(lambda: pbn.leaf_hash(leaves, width), 3)
+    leaf_bound, _ = _bound_ms(bn254_leaf_work(n, width), rate)
+    del leaves
+    groups = n // 16
+    level = torch.randint(-(1 << 63), (1 << 63) - 1, (groups, 17, 4),
+                          dtype=torch.int64, device=cuda)
+    _require(_max_abs_err(pbn.permute(level, 17),
+                          pbn._permute_plain(level, 17)) == 0,
+             "poseidon_bn254_permute equals its plain version at the "
+             "RecursiveF first tree level")
+    perm_ms = _cuda_ms(lambda: pbn.permute(level, 17), 5)
+    perm_bound, _ = _bound_ms(bn254_permute_work(groups), rate)
+    del level
+    torch.cuda.empty_cache()
+    print(f"kernel poseidon_bn254_leaf_hash at [{n}, {width}] (RecursiveF "
+          f"cm1 leaves): {leaf_ms:.4f} ms (bound {leaf_bound:.4f} ms), "
+          f"bit-equal; poseidon_bn254_permute at [{groups}, 17, 4] (its "
+          f"first tree level): {perm_ms:.4f} ms (bound {perm_bound:.4f} "
+          f"ms), bit-equal", flush=True)
+    return {"poseidon_bn254_leaf_hash": {"shape": [n, width], "ms": leaf_ms,
+                                         "bound_ms": leaf_bound},
+            "poseidon_bn254_permute": {"shape": [groups, 17, 4],
+                                       "ms": perm_ms,
+                                       "bound_ms": perm_bound}}
+
+
+def phase_final(torch, stack, root):
+    """finalize(wrap="groth16", snark=False) over the aggregate root:
+    RecursiveF byte-equal to the JAX package's and verified, two
+    refusals, the R1CS publics equal to the JAX cascade's; launches
+    counted from 0 over the RecursiveF build, its proof and the R1CS."""
+    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
+    from xlayer_prover_tpu_torch.stark import verifier
+    from xlayer_prover_tpu_torch.stark.proof import StarkProof
+
+    with open(RECF_FIXTURE) as f:
+        fixture = f.read()
+    with open(CASCADE_RECORD) as f:
+        want = [int(v) for v in json.load(f)["groth16_publics"]]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    timings = {}
+    t0 = time.perf_counter()
+    out = stack.finalize(root, wrap="groth16", snark=False, timings=timings)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    recf = stack._aux[("recF", root.level)]
+    g = recf.air
+    print(f"final RecursiveF: scheme={g.scheme} n_bits={g.n_bits} "
+          f"n_bits_ext={g.n_bits_ext} cm1={g.cm1_width} cm2={g.cm2_width} "
+          f"cm3={g.cm3_width} cm4={g.cm4_width} const={g.const_width} "
+          f"publics={g.n_publics} constraints={len(g.constraints)} ev_map="
+          f"{len(g.ev_map)} fri_steps={g.fri_steps} rows_used="
+          f"{recf.layout.n_rows_used} {recf.tracer.stats()}", flush=True)
+    proof = out["proof"]
+    _require(proof.to_json() == fixture,
+             "the RecursiveF proof on the card is byte-equal to the JAX "
+             "package's (tests/data/recF_devnet_root_q4.proof.json)")
+    t0 = time.perf_counter()
+    _require(recf.verify(proof), "the RecursiveF proof verifies")
+    verify_s = time.perf_counter() - t0
+    print("final: RecursiveF proof byte-equal to "
+          f"{os.path.relpath(RECF_FIXTURE, REPO)}, verifies "
+          f"({verify_s:.3f} s)", flush=True)
+
+    def refused(bad, what: str) -> str:
+        try:
+            accepted = recf.verify(bad)
+        except verifier.VerifyError as e:
+            return f"VerifyError ({e})"
+        _require(not accepted, f"{what} is refused")
+        return "refused"
+
+    bad = StarkProof.from_json(fixture)
+    bad.roots[0][0] = (bad.roots[0][0] + 1) % pbn.P
+    print("final: RecursiveF proof with its cm1 root moved refused: "
+          + refused(bad, "a moved Fr root"), flush=True)
+    bad = StarkProof.from_json(fixture)
+    bad.publics[4 + NEW_STATE_ROOT] = \
+        (bad.publics[4 + NEW_STATE_ROOT] + 1) % (2 ** 64 - 2 ** 32 + 1)
+    print("final: RecursiveF proof with a payload public changed refused: "
+          + refused(bad, "a changed public"), flush=True)
+    _require(out["final"] == "r1cs" and out["publics"] == want,
+             "the R1CS publics equal the 52 groth16_publics of "
+             "PROOF_a7_cascade_devnet.json")
+    print(f"final: R1CS of {out['n_constraints']} constraints satisfied; "
+          f"its {len(want)} publics equal the JAX cascade's groth16_publics",
+          flush=True)
+    shapes = check_bn254_shapes(torch, g)
+    print(device.smi("name,power.limit"), flush=True)
+    report = {"n_bits": g.n_bits, "total_s": total_s, "timings_s": timings,
+              "verify_s": verify_s, "n_constraints": out["n_constraints"],
+              "peak_bytes": peak, "launches": launches}
+    print("final " + json.dumps(report), flush=True)
     return launches, shapes
 
 
@@ -695,23 +990,29 @@ def main() -> int:
     # gl_mul is timed at one butterfly stage of the cm1 LDE
     rows = phase_kernels(torch, rng,
                          (1 << (air.n_bits_ext - 1)) * air.cm1_width)
+    rows += phase_bn254_kernels(torch, rng)
     phase_fib(torch)
     by_path = {"binary_sm_2e20": phase_binary(torch, case, trace_s)}
     del case
     by_path["zkevm_2e13"] = phase_zkevm(torch)
     by_path["devnet_2e16"], engine = phase_devnet(torch)
-    by_path["recursion_2e18"], at_rec1 = phase_recursion(torch, engine)
+    by_path["recursion_2e18"], at_rec1, stack, root = phase_recursion(
+        torch, engine)
+    del engine
+    by_path["final_2e16"], at_final = phase_final(torch, stack, root)
     for path, launches in by_path.items():
-        for name in MAIN_PATH_KERNELS:
+        for name in PATH_KERNELS[path]:
             _require(launches[name] > 0, f"{name} launched on the {path} "
                      f"path")
     for r in rows:
-        r["launches"] = by_path["recursion_2e18"][r["name"]]
+        r["launches"] = by_path["final_2e16"][r["name"]]
         r["launches_by_path"] = {p: v[r["name"]] for p, v in by_path.items()}
         r["at_recursion_shape"] = at_rec1.get(r["name"])
+        r["at_final_shape"] = at_final.get(r["name"])
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "plain_shape", "launches_by_path", "at_recursion_shape"]
+            "plain_shape", "launches_by_path", "at_recursion_shape",
+            "at_final_shape"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(f"total_s {time.perf_counter() - t_all:.2f}", flush=True)

@@ -44,3 +44,12 @@ def test_guard_sees_every_import_form():
 def test_port_imports_no_jax(path):
     bad = sorted(set(_imported(ast.parse(path.read_text()))) & set(FORBIDDEN))
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("module", [
+    "ops/poseidon_bn254.py", "stark/commitment.py", "fields/bn254.py",
+    "snark/r1cs.py", "snark/final_circuit.py", "recursion/stack.py"])
+def test_final_stage_modules_are_checked(module):
+    """The final stage's modules (the BN128 scheme, the R1CS) are among
+    the sources the guard above reads."""
+    assert ROOT / "xlayer_prover_tpu_torch" / module in SOURCES

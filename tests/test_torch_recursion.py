@@ -300,12 +300,15 @@ def test_recursive_proof_json_round_trip(name):
 
 
 def test_bn128_stages_are_not_ported(rec1_fib):
+    """RecursiveF and the R1CS are ported (tests/test_torch_recursive_f.py);
+    what still raises is Groth16: finalize(wrap="groth16") with its default
+    snark=True names it before any work."""
     (air, *_), _ = rec1_fib
-    with pytest.raises(NotImplementedError, match="BN128Scheme"):
-        engine.RecursiveF(air, [0, 0, 0, 0], device="cpu")
     st = stack.RecursionStack(air, [0, 0, 0, 0], device="cpu")
-    with pytest.raises(NotImplementedError, match="Groth16"):
-        st.finalize(None, wrap="groth16")
+    for kw in ({}, {"snark": True}):
+        with pytest.raises(NotImplementedError, match="Groth16"):
+            st.finalize(None, wrap="groth16", **kw)
+    assert st._rec1 is None and not st._aux
 
 
 # ---------------------------------------------------------------------------

@@ -244,12 +244,56 @@ def rec1_fib_case(pkg: str, inner=None):
     return gair, layout, const_np, cm1, gate_air.publics_of(layout, vals)
 
 
+def fib_bn128_case(pkg: str):
+    """The fib toy (n_bits 4, 2 queries) over the BN128 commitment scheme
+    (Poseidon-BN254 arity-16 trees, TranscriptBN128), as the JAX package's
+    tests/test_final_circuit.py builds it.  -> (air, layout, const, cm1,
+    publics)"""
+    fib = importlib.import_module(f"{pkg}.models.toy.fib")
+    air = fib.build_air(n_bits=4, n_queries=2)
+    air.scheme = "bn128"
+    const_np, cm1, publics = fib.gen_trace(air)
+    return air, None, const_np, cm1, publics
+
+
+def devnet_root_proof(pkg: str):
+    """The committed aggregate root of the devnet cascade as `pkg`'s
+    StarkProof."""
+    proof_mod = importlib.import_module(f"{pkg}.stark.proof")
+    with open(os.path.join(ROOT, "a7_state_devnet",
+                           "aggregate_root_nb16_q4.json")) as f:
+        return proof_mod.StarkProof.from_json(json.load(f)["proof"])
+
+
+def recf_devnet_root_jax() -> str:
+    """RecursiveF (4 queries) over the committed devnet aggregate root,
+    proven by the JAX package on the CPU: the recursion pair over the
+    devnet AIR and DEVNET_VERKEY with the zkEVM chain spec (its recursive2
+    is the root's verifier), then RecursiveF over recursive2's AIR and
+    verkey.  -> the proof's JSON"""
+    from xlayer_prover_tpu.recursion import engine, stack
+    jeng = devnet_prover("xlayer_prover_tpu")
+    link, out_map = stack.zkevm_chain_spec(jeng.air.n_publics)
+    st = stack.RecursionStack(jeng.air, DEVNET_VERKEY, n_queries=4,
+                              link=link, out_map=out_map)
+    rec2 = st.rec2()
+    root = devnet_root_proof("xlayer_prover_tpu")
+    assert [int(v) for v in rec2.verkey] == \
+        [int(v) for v in root.publics[:4]]
+    recf = engine.RecursiveF(rec2.air, rec2.verkey, n_queries=4)
+    return recf.prove(root).to_json()
+
+
 CASES = {"binary_sm_n10_q4": binary_sm_case,
          "composite_n11_q4": composite_case,
          "zkevm_mini_n13_q4": zkevm_mini_case,
          "storage_n11_q8": storage_case,
          "devnet_batch0_n16_q4": devnet_case,
-         "rec1_fib_n13_q4": rec1_fib_case}
+         "rec1_fib_n13_q4": rec1_fib_case,
+         "fib_bn128_n4_q2": fib_bn128_case}
+# proofs that are not one Setup + gen_proof of a case: name -> the JAX
+# package's proof JSON
+PROOFS = {"recF_devnet_root_q4": recf_devnet_root_jax}
 # the verkey (constant-tree root) of the devnet AIR at
 # DEVNET_GEOMETRY: the port's Setup.build on the CPU gave these limbs (the
 # slow tests/test_torch_recursion.py::test_devnet_verkey_is_the_setup_root
@@ -275,6 +319,8 @@ def read(name: str) -> str:
 
 def jax_proof(name: str) -> str:
     """The JAX package's proof of case `name` on the CPU, as JSON."""
+    if name in PROOFS:
+        return PROOFS[name]()
     from xlayer_prover_tpu.stark import prover
     air, _layout, const_np, cm1, publics = CASES[name]("xlayer_prover_tpu")
     setup = prover.Setup.build(air, const_np)
@@ -286,7 +332,8 @@ def main(names) -> int:
     import jax
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
-    for name in names or [c for c in CASES if c not in IN_PLACE]:
+    for name in names or [c for c in (*CASES, *PROOFS)
+                          if c not in IN_PLACE]:
         if name in IN_PLACE:
             raise SystemExit(f"{path(name)} is read in place, never "
                              f"rewritten")

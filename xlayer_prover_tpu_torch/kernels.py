@@ -37,11 +37,19 @@ _LIBS = {
         "poseidon_linear_hash_launch": [_P, _P, ctypes.c_int64, ctypes.c_int,
                                         _P],
     }),
+    "poseidon_bn254": ("poseidon_bn254.cu", {
+        "poseidon_bn254_permute_launch": [_P, _P, ctypes.c_int64, ctypes.c_int,
+                                          ctypes.c_int, _P, _P],
+        "poseidon_bn254_leaf_hash_launch": [
+            _P, _P, ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int, _P,
+            ctypes.c_int, ctypes.c_int, _P],
+    }),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-LAUNCHES = {"gl_mul": 0, "poseidon_permute": 0, "poseidon_linear_hash": 0}
+LAUNCHES = {"gl_mul": 0, "poseidon_permute": 0, "poseidon_linear_hash": 0,
+            "poseidon_bn254_permute": 0, "poseidon_bn254_leaf_hash": 0}
 _loaded: dict = {}
 
 

@@ -27,8 +27,8 @@ shape, so it can consume recursive1 proofs, its own proofs, or a mix:
     node's key — aggregation trees of any depth and shape.
 
 Setups (circuit + const tree) are built once per inner geometry and
-reused for every proof.  ``RecursiveF`` (the BN128 commitment stack) is
-not ported.
+reused for every proof.  ``RecursiveF`` is recursive1 over the BN128
+commitment scheme (Poseidon-BN254 arity-16 trees and TranscriptBN128).
 """
 
 from __future__ import annotations
@@ -51,12 +51,14 @@ P = gl.P
 
 
 def _build(tracer: Tracer, n_queries: int, n_bits: Optional[int], device,
-           timings: dict | None = None):
-    """Gate AIR, layout and Setup of a traced circuit on `device`;
-    `timings` receives the seconds of the AIR build with its constant
-    columns (``air_s``) and of ``Setup.build`` (``setup_s``)."""
+           timings: dict | None = None, scheme: str = "gl"):
+    """Gate AIR (committed with `scheme`), layout and Setup of a traced
+    circuit on `device`; `timings` receives the seconds of the AIR build
+    with its constant columns (``air_s``) and of ``Setup.build``
+    (``setup_s``)."""
     t0 = time.perf_counter()
     air, layout = gate_air.build(tracer, n_bits=n_bits, n_queries=n_queries)
+    air.scheme = scheme
     const_np = np.zeros((air.n, air.const_width), dtype=np.uint64)
     gate_air.fill_fixed(layout, const_np, device)
     t1 = time.perf_counter()
@@ -96,16 +98,20 @@ class Recursive1:
     followed by the inner proof's publics."""
 
     def __init__(self, inner_air, inner_verkey, n_queries: int = 8,
-                 n_bits: Optional[int] = None, device=None,
-                 _tracer=None, _pw=None, timings: dict | None = None):
+                 n_bits: Optional[int] = None, scheme: str = "gl",
+                 device=None, _tracer=None, _pw=None,
+                 timings: dict | None = None):
         self.inner_air = inner_air
         self.inner_verkey = list(inner_verkey)
         self.device = dev.resolve(device)
         if _tracer is None:
+            t0 = time.perf_counter()
             _tracer, _pw = self.trace(inner_air, self.inner_verkey)
+            if timings is not None:
+                timings["trace_s"] = time.perf_counter() - t0
         self.tracer, self._pw = _tracer, _pw
         self.air, self.layout, self.setup = _build(
-            _tracer, n_queries, n_bits, self.device, timings)
+            _tracer, n_queries, n_bits, self.device, timings, scheme)
 
     @staticmethod
     def trace(inner_air, inner_verkey):
@@ -255,12 +261,13 @@ def build_recursion_pair(inner_air, inner_verkey, n_queries: int = 8,
 
 class RecursiveF(Recursive1):
     """Recursive1 over the BN128 commitment stack (starkRecursiveF.cpp):
-    Poseidon-BN254 arity-16 Merkle trees + TranscriptBN128.  Not ported:
-    ROADMAP.md queue 1, item 13b (``BN128Scheme`` with a Poseidon-BN254
-    kernel)."""
+    the same verifier-as-gate-circuit, committed with Poseidon-BN254
+    arity-16 Merkle trees + TranscriptBN128, so the output proof is cheap
+    to verify inside the BN254 final circuit (snark/final_circuit.py)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "RecursiveF needs BN128Scheme, which is not ported yet "
-            "(ROADMAP.md queue 1, item 13b: BN128Scheme and a Poseidon-BN254 "
-            "kernel)")
+    def __init__(self, inner_air, inner_verkey, n_queries: int = 8,
+                 n_bits: Optional[int] = None, device=None,
+                 timings: dict | None = None):
+        super().__init__(inner_air, inner_verkey, n_queries=n_queries,
+                         n_bits=n_bits, scheme="bn128", device=device,
+                         timings=timings)

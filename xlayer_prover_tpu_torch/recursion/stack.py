@@ -1,8 +1,9 @@
 """RecursionStack: the proof cascade manager.
 
-The port's own copy of ``xlayer_prover_tpu/recursion/stack.py``, over the
-GL commitment scheme: ``finalize(wrap="groth16")`` (RecursiveF, the BN254
-final circuit and Groth16) is not ported.
+The port's own copy of ``xlayer_prover_tpu/recursion/stack.py``:
+``finalize(wrap="groth16", snark=False)`` proves RecursiveF (the BN128
+commitment scheme) and checks the BN254 final circuit's R1CS witness;
+Groth16 (``snark=True``) is not ported.
 
 Mirrors the reference cascade (prover.cpp:392-825): batch STARK ->
 recursive1 (verifier-as-circuit compression) -> recursive2 aggregation.
@@ -23,9 +24,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import time
 
 from ..stark.proof import StarkProof
-from .engine import Recursive1, Recursive2, build_recursion_pair
+from .engine import Recursive1, Recursive2, RecursiveF, build_recursion_pair
 
 
 def zkevm_chain_spec(n_publics: int):
@@ -72,6 +74,7 @@ class RecursionStack:
         self.timings: dict = {}    # the pair build's seconds
         self._rec1: Recursive1 = None
         self._rec2: Recursive2 = None
+        self._aux: dict = {}       # ("recF", level) -> RecursiveF
 
     # -- engines ---------------------------------------------------------
     def _ensure_pair(self):
@@ -110,21 +113,58 @@ class RecursionStack:
             return self.rec1().verify(rp.proof)
         return self.rec2().verify(rp.proof)
 
-    def finalize(self, proof, wrap: str = "stark"):
+    def finalize(self, proof, wrap: str = "stark", snark: bool = True,
+                 rng=None, timings: dict | None = None):
         """Final-stage packaging (reference genFinalProof,
         prover.cpp:827-980).
 
         wrap="stark": verify (incl. the root carried-verkey pin) and
-        return the terminal recursive proof.  wrap="groth16" (RecursiveF,
-        the BN254 final circuit and Groth16) is not ported."""
-        if wrap == "groth16":
-            raise NotImplementedError(
-                "finalize(wrap='groth16') needs RecursiveF over "
-                "BN128Scheme, the final circuit and Groth16, which are not "
-                "ported yet (ROADMAP.md queue 1, items 13b-13c)")
-        if wrap != "stark":
+        return the terminal recursive proof.
+        wrap="groth16": re-prove through RecursiveF (the same verifier
+        circuit over BN254 Poseidon commitments, built once per level) and
+        express ITS verifier as a BN254-Fr R1CS (snark/final_circuit.py).
+        ``snark=False`` stops after the R1CS witness check and returns
+        {"final": "r1cs", "n_constraints", "publics", "proof"} ("proof":
+        the RecursiveF proof); ``snark=True`` (Groth16 over that R1CS,
+        with `rng`) is not ported.  `timings` receives the seconds of the
+        RecursiveF build (``recF_*``, when it is built), its proof's
+        rounds, the R1CS build (``r1cs_s``) and its check (``check_s``)."""
+        if wrap not in ("stark", "groth16"):
             raise ValueError(f"unknown wrap {wrap!r}")
+        if wrap == "groth16" and snark:
+            raise NotImplementedError(
+                "finalize(wrap='groth16', snark=True) needs Groth16 over the "
+                "final circuit's R1CS, which is not ported yet (ROADMAP.md "
+                "queue 1, item 13c); snark=False stops at the R1CS witness")
         rp = self.lift(proof)
         if not self.verify(rp):
             raise ValueError("the recursive proof does not verify")
-        return rp
+        if wrap == "stark":
+            return rp
+
+        from ..snark import final_circuit
+        from ..snark.r1cs import check_witness
+        timings = {} if timings is None else timings
+        key = ("recF", rp.level)
+        eng = self._aux.get(key)
+        if eng is None:
+            inner = self.rec1() if rp.level == 1 else self.rec2()
+            built = {}
+            eng = RecursiveF(inner.air, inner.verkey,
+                             n_queries=self.n_queries, device=self.device,
+                             timings=built)
+            timings.update({f"recF_{k}": v for k, v in built.items()})
+            self._aux[key] = eng
+        bn_proof = eng.prove(rp.proof, timings)
+        t0 = time.perf_counter()
+        r1cs, witness, _fb = final_circuit.build_final_circuit(
+            eng.air, eng.setup.verkey, bn_proof)
+        timings["r1cs_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        satisfied = check_witness(r1cs, witness)
+        timings["check_s"] = time.perf_counter() - t0
+        if not satisfied:
+            raise ValueError("the final circuit's witness does not satisfy "
+                             "its R1CS")
+        return {"final": "r1cs", "n_constraints": len(r1cs.constraints),
+                "publics": witness[1:1 + r1cs.n_public], "proof": bn_proof}

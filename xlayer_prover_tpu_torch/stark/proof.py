@@ -17,7 +17,8 @@ from typing import List, Optional
 @dataclasses.dataclass
 class MerkleProofData:
     values: List[int]          # leaf row (width elements)
-    siblings: List[List[int]]  # per level, 4-element digest
+    siblings: List[List[int]]  # per level: the 4-element sibling digest
+                               # (gl) or the 16-sibling group (bn128)
 
 
 @dataclasses.dataclass
@@ -28,7 +29,7 @@ class FriStep:
 
 @dataclasses.dataclass
 class StarkProof:
-    roots: List[List[int]]       # 4 roots x 4 elements
+    roots: List[List[int]]       # 4 roots x 4 elements (gl) or 1 (bn128)
     evals: List[List[int]]       # [nEv][3]
     fri_steps: List[FriStep]
     final_pol: List[List[int]]   # [pol2N][3]
