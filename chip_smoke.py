@@ -8,7 +8,8 @@
                                      # the fork_9 ROM at 2^16 rows, and
                                      # lifts and aggregates devnet batch
                                      # proofs through the recursion stack
-                                     # at 2^18 rows
+                                     # at 2^18 rows, and wraps the root in
+                                     # RecursiveF and Groth16
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -62,23 +63,38 @@ Phases (any failure exits non-zero and prints no result line):
      its shapes (the recursive1 cm1 leaves, 2^19 x 60; an LDE stage,
      2^18 x 60);
   8. the final stage, the main path of this slice:
-     ``stack.finalize(root, wrap="groth16", snark=False)`` over phase 7's
-     aggregate root builds RecursiveF (recursive1 over the BN128
+     ``stack.finalize(root, wrap="groth16", snark=True,
+     rng=random.Random(11))`` over phase 7's aggregate root, the JAX
+     cascade's own call, builds RecursiveF (recursive1 over the BN128
      commitment scheme: Poseidon-BN254 arity-16 trees, TranscriptBN128)
-     over recursive2, proves it and builds the BN254 final circuit's R1CS
-     (launches counted from 0).  The RecursiveF proof must be byte-equal
-     to the JAX package's, committed as
-     tests/data/recF_devnet_root_q4.proof.json, and verify; the proof with
-     one Fr root moved and with a payload public changed must be refused;
-     the R1CS witness must satisfy it and its publics equal the 52
-     ``groth16_publics`` of PROOF_a7_cascade_devnet.json.  Then the BN254
-     kernels are held bit for bit at its shapes (the cm1 leaves and the
-     first tree level).
+     over recursive2, proves it, builds the BN254 final circuit's R1CS and
+     proves that with Groth16 (setup with the fixed-base kernels, h with
+     the Fr NTT, the G1 and G2 MSMs; launches counted from 0).  The
+     RecursiveF proof must be byte-equal to the JAX package's, committed
+     as tests/data/recF_devnet_root_q4.proof.json, and verify; the proof
+     with one Fr root moved and with a payload public changed must be
+     refused.  The Groth16 proof's verification_key.json, proof.json and
+     public.json (written by the port's snarkjs_io into build/) must be
+     byte-equal to tests/data/g16_devnet_root_r11/, be accepted from the
+     files alone, and be refused with a changed public; its publics are
+     the 52 ``groth16_publics`` of PROOF_a7_cascade_devnet.json.  Then the
+     Poseidon-BN254 kernels are held bit for bit at its shapes (the cm1
+     leaves and the first tree level).
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
 versions: poseidon_bn254_permute at every width t = 2..17 (edge inputs 0,
 1, r - 1, r, r + 1, 2^256 - 1 and inputs above r included) and on 2^16 of
 the 2^20 t = 17 states it is timed on; poseidon_bn254_leaf_hash at widths
 1, 3, 4, 5, 6, 48, 50, 60 and 519 and at the 2^17 x 60 rows it is timed on.
+And Groth16's kernels: bn254_fixed_base_g1 / _g2 on 2^12 scalars (0, 1,
+2, r - 1, r - 2, 2^253 among them), then bn254_msm_g1 / _g2 on 2^14
+points made by them (points at infinity, zero scalars, r - 1, a repeated
+point, a point beside its negation, a bucket of a quarter of the points;
+10-bit windows, several buckets a running-sum segment) and on the 2^20
+points they are timed on (16-bit windows, as on the main path) with all
+but 8,208 scalars set to 0, fr_ntt at 2^0, 2^1, 2^5, 2^12, on the 2^21
+values it is timed on and as a 2^20 inverse, fr_mul_sub at 2^21 with edge
+values; each timed at the devnet root's shapes (2^20 scalars and points,
+2^21 values).
 It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
 final path, this slice's main path, 0 included; ``launches_by_path`` has
 every path's) and ends with
@@ -100,17 +116,32 @@ FR_PROD32 = 2 * 64                 # 32-bit multiplies of a full product
                                    # of two 8 x 32-bit words Fr values
 FR_SQR32 = 2 * 36                  # of a square (36 distinct word pairs)
 FR_REDC32 = 8 * 17                 # of one Montgomery reduction
+FR_MUL = FR_PROD32 + FR_REDC32     # a reduced product, M (Fq or Fr)
+FR_SQ = FR_SQR32 + FR_REDC32       # a reduced square, S
+# an Fq2 product counts as 3 Fq products, a square as 2
+CURVE_OPS = {"g1": {"mixed": 7 * FR_MUL + 4 * FR_SQ,
+                    "full": 11 * FR_MUL + 5 * FR_SQ, "mul": FR_MUL,
+                    "point_bytes": 64},
+             "g2": {"mixed": 7 * 3 * FR_MUL + 4 * 2 * FR_MUL,
+                    "full": 11 * 3 * FR_MUL + 5 * 2 * FR_MUL,
+                    "mul": 3 * FR_MUL, "point_bytes": 128}}
 SEED = 20261016                    # kernel inputs of phase 2
 # the kernels that every Setup.build + gen_proof of a path launches
 GL_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
+G16_KERNELS = ("bn254_msm_g1", "bn254_msm_g2", "bn254_fixed_base_g1",
+               "bn254_fixed_base_g2", "fr_ntt", "fr_mul_sub")
 PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
                 "zkevm_2e13": GL_PATH_KERNELS,
                 "devnet_2e16": GL_PATH_KERNELS,
                 "recursion_2e18": GL_PATH_KERNELS,
                 "final_2e16": ("poseidon_bn254_leaf_hash",
-                               "poseidon_bn254_permute", "gl_mul")}
+                               "poseidon_bn254_permute", "gl_mul",
+                               *G16_KERNELS)}
 RECF_FIXTURE = os.path.join(REPO, "tests", "data",
                             "recF_devnet_root_q4.proof.json")
+G16_FIXTURE = os.path.join(REPO, "tests", "data", "g16_devnet_root_r11")
+G16_OUT = os.path.join(REPO, "build", "g16_devnet_root_r11")
+SNARKJS_FILES = ("verification_key.json", "proof.json", "public.json")
 CASCADE_RECORD = os.path.join(REPO, "PROOF_a7_cascade_devnet.json")
 ZKEVM_FIXTURE = os.path.join(REPO, "tests", "data",
                              "zkevm_mini_n13_q4.proof.json")
@@ -132,6 +163,17 @@ def _cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _timed(torch, fn):
+    """(fn(), its ms on the card) of one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _max_abs_err(got, ref) -> int:
@@ -217,6 +259,50 @@ def bn254_leaf_work(m: int, width: int) -> dict:
     """Bytes and 32-bit multiplies of poseidon_bn254_leaf_hash over m rows
     of `width` words: each row read once, each Fr digest written once."""
     return {"bytes": (width + 4) * 8 * m, "ops": leaf_mul32(width) * m}
+
+
+def msm_work(group: str, points, scalars) -> dict:
+    """Bytes and 32-bit multiplies of an MSM over these inputs: Pippenger
+    at the c minimising ceil(254 / c) (n + 2^(c + 1)) for the n pairs of a
+    finite point and a nonzero scalar, a mixed addition (7 M + 4 S) for
+    each nonzero c-bit digit of those pairs and two full additions
+    (11 M + 5 S) a bucket a window for the running sums; each point and
+    scalar read once."""
+    from xlayer_prover_tpu_torch.ops import bn254_msm
+    live = (points != 0).any(-1) & (scalars != 0).any(-1)
+    n_live = int(live.sum())
+    c = bn254_msm.window_bits(n_live)
+    windows = -(-bn254_msm.SCALAR_BITS // c)
+    digits = int((bn254_msm._digits(scalars[live], c, windows) != 0).sum())
+    ops = CURVE_OPS[group]
+    return {"bytes": points.shape[0] * (ops["point_bytes"] + 32),
+            "ops": digits * ops["mixed"] + windows * (2 << c) * ops["full"]}
+
+
+def fixed_base_work(group: str, scalars) -> dict:
+    """Bytes and 32-bit multiplies of a fixed-base batch over these
+    scalars: 8-bit windows over a precomputed table, a mixed addition for
+    each nonzero byte of a scalar, and 3 products a nonzero scalar for a
+    batch normalisation; each scalar read and each point written once."""
+    ops = CURVE_OPS[group]
+    nbytes = sum(int((((scalars >> (8 * k)) & 0xFF) != 0).sum())
+                 for k in range(8))
+    nonzero = int((scalars != 0).any(-1).sum())
+    return {"bytes": scalars.shape[0] * (32 + ops["point_bytes"]),
+            "ops": nbytes * ops["mixed"] + nonzero * 3 * ops["mul"]}
+
+
+def ntt_work(n: int) -> dict:
+    """Bytes and 32-bit multiplies of one Fr NTT of n values: (n / 2)
+    log2 n products, one read and one write of n x 32 bytes."""
+    return {"bytes": 2 * 32 * n, "ops": (n // 2) * (n.bit_length() - 1)
+            * FR_MUL}
+
+
+def mul_sub_work(n: int) -> dict:
+    """a b - c over n Fr values: one product each, three reads and a
+    write of n x 32 bytes."""
+    return {"bytes": 4 * 32 * n, "ops": n * FR_MUL}
 
 
 def int_mul_rate(torch) -> float:
@@ -360,12 +446,14 @@ def phase_bn254_kernels(torch, rng):
     import numpy as np
 
     from xlayer_prover_tpu_torch.fields import gl
+    from xlayer_prover_tpu_torch.ops import bn254_mont
     from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
 
     cuda = torch.device("cuda")
     int_rate = int_mul_rate(torch)
     fr = pbn.P
-    edges = pbn.to_limbs([0, 1, fr - 1, fr, fr + 1, (1 << 256) - 1])
+    edges = bn254_mont.to_words([0, 1, fr - 1, fr, fr + 1, (1 << 256) - 1]
+                                ).view(np.uint64)
 
     def fr_states(n, t):
         """Seeded 256-bit inputs (most above r, which the kernel reduces;
@@ -383,8 +471,8 @@ def phase_bn254_kernels(torch, rng):
         got = pbn.permute(x, t)
         err = max(err, _max_abs_err(got, pbn._permute_plain(x, t)))
         host = [v for k in (3, 7) for v in pbn.host_permute(
-            pbn.from_limbs(w[k]))]
-        _require(pbn.from_limbs(gl.to_u64_np(got[[3, 7]])) == host,
+            bn254_mont.from_words(w[k]))]
+        _require(bn254_mont.from_words(got[[3, 7]]) == host,
                  f"poseidon_bn254_permute t={t} equals host_permute")
     n = 1 << 20
     x = gl.from_u64_np(fr_states(n, 17), cuda)
@@ -413,7 +501,7 @@ def phase_bn254_kernels(torch, rng):
         t = gl.from_u64_np(r, cuda)
         got = pbn.leaf_hash(t, width)
         err = max(err, _max_abs_err(got, pbn._leaf_hash_plain(t, width)))
-        _require(pbn.from_limbs(gl.to_u64_np(got[9:10])) ==
+        _require(bn254_mont.from_words(got[9:10]) ==
                  [pbn.leaf_hash_host([int(v) for v in r[9]])],
                  f"poseidon_bn254_leaf_hash width {width} equals the host "
                  "leaf hash")
@@ -443,6 +531,192 @@ def phase_bn254_kernels(torch, rng):
     torch.cuda.empty_cache()
     for r in rows:
         _bound(r, int_rate)
+    return rows
+
+
+def _flat(pt) -> list:
+    """An affine G1 or G2 point's coordinates as a flat list of ints ([]
+    at infinity)."""
+    if pt is None:
+        return []
+    return [v for c in pt for v in (c if isinstance(c, tuple) else (c,))]
+
+
+def _curve_inputs(torch, rng, gen_group: str, n: int):
+    """n seeded points of G1 or G2 made on the card by the fixed-base
+    kernel (held against its plain version before), and n scalars, with
+    every edge of the MSM kernels among the first rows: points at
+    infinity, zero scalars, r - 1, one point repeated under one scalar, a
+    point beside its negation, and scalar 1 on a quarter of the rows (the
+    heavy bucket of Groth16's witnesses)."""
+    from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
+    from xlayer_prover_tpu_torch.ops import bn254_mont, bn254_msm
+
+    cuda = torch.device("cuda")
+    r = bn254.R
+    ks = [int(v) % r for v in rng.integers(1, 1 << 63, size=n)]
+    gen = bn254.G1_GEN if gen_group == "g1" else bn254_tower.G2_GEN
+    fixed = getattr(bn254_msm, f"fixed_base_{gen_group}")
+    pts = fixed(gen, torch.from_numpy(bn254_mont.to_words(ks)).to(cuda))
+    sc = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(n)]
+    sc[0] = sc[1] = 0
+    sc[2] = r - 1
+    sc[n // 4:n // 2] = [1] * (n // 2 - n // 4)
+    sc[9:17] = [sc[8]] * 8
+    pts[3] = 0
+    pts[9:17] = pts[8]
+    fw = pts.shape[1] // 2                # words of a coordinate
+    neg = [(bn254.P - v) % bn254.P for v in bn254_mont.from_words(
+        pts[6, fw:].reshape(-1, 4).cpu())]
+    pts[7] = pts[6]
+    pts[7, fw:] = torch.from_numpy(bn254_mont.to_words(neg)).reshape(-1).to(
+        cuda)
+    sc[7] = sc[6]
+    return pts, torch.from_numpy(bn254_mont.to_words(sc)).to(cuda)
+
+
+def phase_g16_kernels(torch, rng):
+    """Groth16's kernels against their plain versions on the card, bit for
+    bit, with every edge among the inputs, at small shapes and at the
+    main path's (the MSMs' 16-bit windows, the NTT at 2^21 and a 2^20
+    inverse), then timed at the devnet root's shapes (phase 2): the MSMs
+    and fixed-base batches at 2^20, the NTT and a b - c at 2^21."""
+    from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
+    from xlayer_prover_tpu_torch.ops import bn254_mont, bn254_msm, ntt_fr
+
+    cuda = torch.device("cuda")
+    int_rate = int_mul_rate(torch)
+    r = bn254.R
+    small, mid, big = 1 << 12, 1 << 14, 1 << 20
+    rows = []
+    src = "xlayer_prover_tpu_torch/csrc/bn254_msm_{}.cu"
+    msm_cpp = "xlayer_prover_tpu/native/msm.cpp:{}"
+
+    def words(vals):
+        return torch.from_numpy(bn254_mont.to_words(vals)).to(cuda)
+
+    # -- fixed base: scalars 0, 1, 2, r - 1, r - 2, 2^253 and seeded ------
+    for group, gen, line, ops in (("g1", bn254.G1_GEN, 481, bn254_msm.FQ1_OPS),
+                                  ("g2", bn254_tower.G2_GEN, 495,
+                                   bn254_msm.FQ2_OPS)):
+        fn = getattr(bn254_msm, f"fixed_base_{group}")
+        ks = [0, 1, 2, r - 1, r - 2, 1 << 253] + [
+            int.from_bytes(rng.bytes(32), "little") % r
+            for _ in range(small - 6)]
+        sc = words(ks)
+        got = fn(gen, sc)
+        ref, plain_ms = _timed(torch, lambda: bn254_msm._fixed_base_plain(
+            ops, gen, sc))
+        err = _max_abs_err(got, ref)
+        _require(err == 0, f"bn254_fixed_base_{group} equals its plain "
+                 "version")
+        host = getattr(bn254_msm, f"{group}_points")(got[3:4].cpu())[0]
+        want = bn254.g1_to_affine(bn254.g1_mul(bn254.g1_from_affine(gen),
+                                               r - 1)) if group == "g1" \
+            else bn254_tower.g2_mul(gen, r - 1)
+        _require(host == want, f"bn254_fixed_base_{group} of r - 1 equals "
+                 "the host's")
+        big_sc = words([int.from_bytes(rng.bytes(32), "little") % r
+                        for _ in range(big)])
+        ms = _cuda_ms(lambda: fn(gen, big_sc), 2)
+        rows.append({
+            "name": f"bn254_fixed_base_{group}", "route": "cuda",
+            "source": src.format(group), "replaces": msm_cpp.format(line),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **fixed_base_work(group, big_sc), "shape": [big],
+            "plain_shape": [small]})
+        del big_sc, got, ref
+        torch.cuda.empty_cache()
+
+    # -- MSM: edge inputs at 2^14 (c = 10: a running-sum segment spans
+    # four buckets) against the plain version; then the timed 2^20 inputs
+    # (c = 16, the main path's layout) with every 128th scalar and the
+    # edge rows kept and the rest set to 0, against the plain version over
+    # the kept rows (the others add nothing) -----------------------------
+    for group, line, ops in (("g1", 288, bn254_msm.FQ1_OPS),
+                             ("g2", 318, bn254_msm.FQ2_OPS)):
+        fn = getattr(bn254_msm, f"msm_{group}")
+        affine = getattr(bn254_msm, f"to_affine_{group}")
+        err = 0
+        for n in (mid, big):
+            pts, sc = _curve_inputs(torch, rng, group, n)
+            idx = torch.arange(n, device=cuda)
+            keep = (idx % 128 == 0) | (idx < 17) | (n == mid)
+            got = fn(pts, torch.where(keep[:, None], sc, 0))
+            ref, ms = _timed(torch, lambda: bn254_msm._msm_plain(
+                ops, pts[keep], sc[keep]))
+            if n == mid:
+                plain_ms = ms
+            a, b = _flat(affine(got)), _flat(affine(ref))
+            err = max([err] + [abs(u - v) for u, v in zip(a, b)])
+            _require(a == b and len(a) > 0, f"bn254_msm_{group} at {n} "
+                     "points equals its plain version (affine)")
+        _require(affine(fn(pts, torch.zeros_like(sc))) is None,
+                 f"bn254_msm_{group} of zero scalars is infinity")
+        ms = _cuda_ms(lambda: fn(pts, sc), 3)
+        rows.append({
+            "name": f"bn254_msm_{group}", "route": "cuda",
+            "source": src.format(group), "replaces": msm_cpp.format(line),
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **msm_work(group, pts, sc), "shape": [big],
+            "plain_shape": [mid]})
+        del pts, sc, idx, keep
+        torch.cuda.empty_cache()
+
+    # -- the Fr NTT at the main path's shapes (the 2^21 forward it times,
+    # a 2^20 inverse) and at small sizes, and a b - c --------------------
+    err = 0
+    for bits in (0, 1, 5, 12):
+        x = words([int.from_bytes(rng.bytes(32), "little") % r
+                   for _ in range(1 << bits)])
+        for inverse in (False, True):
+            err = max(err, _max_abs_err(ntt_fr.ntt(x, inverse),
+                                        ntt_fr._ntt_plain(x, inverse)))
+    n = 1 << 21
+    x = torch.randint(0, 1 << 62, (n, 4), dtype=torch.int64, device=cuda)
+    x[:, 3] &= (1 << 60) - 1                   # below 2^252 < r
+    half = x[:n // 2]
+    err = max(err, _max_abs_err(ntt_fr.ntt(half, inverse=True),
+                                ntt_fr._ntt_plain(half, True)))
+    ref, plain_ms = _timed(torch, lambda: ntt_fr._ntt_plain(x, False))
+    err = max(err, _max_abs_err(ntt_fr.ntt(x), ref))
+    del ref
+    _require(err == 0, "fr_ntt equals its plain version")
+    ms = _cuda_ms(lambda: ntt_fr.ntt(x), 5)
+    inv_ms = _cuda_ms(lambda: ntt_fr.ntt(half, inverse=True), 5)
+    print(f"kernel fr_ntt inverse at [{n // 2}, 4]: {inv_ms:.4f} ms",
+          flush=True)
+    rows.append({
+        "name": "fr_ntt", "route": "cuda",
+        "source": "xlayer_prover_tpu_torch/csrc/fr_ntt.cu",
+        "replaces": "xlayer_prover_tpu/snark/groth16.py:42",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **ntt_work(n),
+        "shape": [n, 4], "plain_shape": [n, 4]})
+    y = torch.flip(x, [0]).contiguous()
+    z = torch.roll(x, 1, 0).contiguous()
+    err = _max_abs_err(ntt_fr.mul_sub(x, y, z),
+                       ntt_fr._mul_sub_plain(x, y, z))
+    edge = words([0, 1, r - 1, r - 2] * 4)
+    err = max(err, _max_abs_err(ntt_fr.mul_sub(edge, edge.flip(0), edge),
+                                ntt_fr._mul_sub_plain(edge, edge.flip(0),
+                                                      edge)))
+    _require(err == 0, "fr_mul_sub equals its plain version")
+    ms = _cuda_ms(lambda: ntt_fr.mul_sub(x, y, z), 20)
+    plain_ms = _cuda_ms(lambda: ntt_fr._mul_sub_plain(x, y, z), 1)
+    rows.append({
+        "name": "fr_mul_sub", "route": "cuda",
+        "source": "xlayer_prover_tpu_torch/csrc/fr_ntt.cu",
+        "replaces": "xlayer_prover_tpu/snark/groth16.py:231",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        **mul_sub_work(n), "shape": [n, 4], "plain_shape": [n, 4]})
+    del x, y, z, half
+    # the plain NTT's tables at 2^21 and 2^20 (~0.23 GB) would otherwise
+    # stay on the card and count in the later phases' peak memory
+    ntt_fr._plain_twiddles.cache_clear()
+    ntt_fr._bitrev.cache_clear()
+    torch.cuda.empty_cache()
+    for row in rows:
+        _bound(row, int_rate)
     return rows
 
 
@@ -886,12 +1160,19 @@ def check_bn254_shapes(torch, air) -> dict:
 
 
 def phase_final(torch, stack, root):
-    """finalize(wrap="groth16", snark=False) over the aggregate root:
-    RecursiveF byte-equal to the JAX package's and verified, two
-    refusals, the R1CS publics equal to the JAX cascade's; launches
-    counted from 0 over the RecursiveF build, its proof and the R1CS."""
+    """finalize(wrap="groth16", snark=True, rng=random.Random(11)) over the
+    aggregate root, the JAX cascade's own call: RecursiveF byte-equal to
+    the JAX package's and verified, two refusals; the Groth16 proof's
+    snarkjs files byte-equal to the JAX package's, accepted from the files
+    alone, a changed public refused; launches counted from 0 over the
+    RecursiveF build, its proof, the R1CS and Groth16's setup, proof and
+    verification."""
+    import filecmp
+    import random
+
     from xlayer_prover_tpu_torch import device, kernels
     from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
+    from xlayer_prover_tpu_torch.snark import snarkjs_io
     from xlayer_prover_tpu_torch.stark import verifier
     from xlayer_prover_tpu_torch.stark.proof import StarkProof
 
@@ -905,12 +1186,16 @@ def phase_final(torch, stack, root):
     kernels.reset_launches()
     timings = {}
     t0 = time.perf_counter()
-    out = stack.finalize(root, wrap="groth16", snark=False, timings=timings)
+    out = stack.finalize(root, wrap="groth16", snark=True,
+                         rng=random.Random(11), timings=timings)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     recf = stack._aux[("recF", root.level)]
+    pk, _vk = stack._aux[("g16", root.level)]
+    key_bytes = sum(getattr(pk, q).numel() * 8 for q in (
+        "a_query", "b1_query", "b2_query", "c_query", "h_query"))
     g = recf.air
     print(f"final RecursiveF: scheme={g.scheme} n_bits={g.n_bits} "
           f"n_bits_ext={g.n_bits_ext} cm1={g.cm1_width} cm2={g.cm2_width} "
@@ -918,7 +1203,7 @@ def phase_final(torch, stack, root):
           f"publics={g.n_publics} constraints={len(g.constraints)} ev_map="
           f"{len(g.ev_map)} fri_steps={g.fri_steps} rows_used="
           f"{recf.layout.n_rows_used} {recf.tracer.stats()}", flush=True)
-    proof = out["proof"]
+    proof = out["recf_proof"]
     _require(proof.to_json() == fixture,
              "the RecursiveF proof on the card is byte-equal to the JAX "
              "package's (tests/data/recF_devnet_root_q4.proof.json)")
@@ -946,17 +1231,41 @@ def phase_final(torch, stack, root):
         (bad.publics[4 + NEW_STATE_ROOT] + 1) % (2 ** 64 - 2 ** 32 + 1)
     print("final: RecursiveF proof with a payload public changed refused: "
           + refused(bad, "a changed public"), flush=True)
-    _require(out["final"] == "r1cs" and out["publics"] == want,
-             "the R1CS publics equal the 52 groth16_publics of "
+
+    _require(out["final"] == "groth16" and out["publics"] == want,
+             "the Groth16 publics equal the 52 groth16_publics of "
              "PROOF_a7_cascade_devnet.json")
-    print(f"final: R1CS of {out['n_constraints']} constraints satisfied; "
-          f"its {len(want)} publics equal the JAX cascade's groth16_publics",
-          flush=True)
+    os.makedirs(G16_OUT, exist_ok=True)
+    vk_path, proof_path, pub_path = (os.path.join(G16_OUT, f)
+                                     for f in SNARKJS_FILES)
+    snarkjs_io.export_vk(out["vk"], vk_path)
+    snarkjs_io.export_proof(out["proof"], proof_path)
+    snarkjs_io.export_publics(out["publics"], pub_path)
+    for name in SNARKJS_FILES:
+        _require(filecmp.cmp(os.path.join(G16_OUT, name),
+                             os.path.join(G16_FIXTURE, name), shallow=False),
+                 f"the Groth16 {name} on the card is byte-equal to the JAX "
+                 f"package's ({os.path.relpath(G16_FIXTURE, REPO)})")
+    t0 = time.perf_counter()
+    _require(snarkjs_io.verify_files(vk_path, pub_path, proof_path),
+             "the Groth16 proof verifies from its snarkjs files")
+    files_verify_s = time.perf_counter() - t0
+    bad_pub = os.path.join(G16_OUT, "public_changed.json")
+    changed = list(out["publics"])
+    changed[4 + NEW_STATE_ROOT] += 1
+    snarkjs_io.export_publics(changed, bad_pub)
+    _require(not snarkjs_io.verify_files(vk_path, bad_pub, proof_path),
+             "the Groth16 proof with a changed public is refused")
+    print(f"final: Groth16 over the R1CS (n_public={len(want)}): "
+          f"verification_key.json, proof.json and public.json byte-equal to "
+          f"{os.path.relpath(G16_FIXTURE, REPO)}, accepted from the files "
+          f"({files_verify_s:.3f} s), a changed public refused", flush=True)
     shapes = check_bn254_shapes(torch, g)
     print(device.smi("name,power.limit"), flush=True)
     report = {"n_bits": g.n_bits, "total_s": total_s, "timings_s": timings,
-              "verify_s": verify_s, "n_constraints": out["n_constraints"],
-              "peak_bytes": peak, "launches": launches}
+              "verify_s": verify_s, "files_verify_s": files_verify_s,
+              "g16_key_bytes": key_bytes, "peak_bytes": peak,
+              "launches": launches}
     print("final " + json.dumps(report), flush=True)
     return launches, shapes
 
@@ -991,6 +1300,7 @@ def main() -> int:
     rows = phase_kernels(torch, rng,
                          (1 << (air.n_bits_ext - 1)) * air.cm1_width)
     rows += phase_bn254_kernels(torch, rng)
+    rows += phase_g16_kernels(torch, rng)
     phase_fib(torch)
     by_path = {"binary_sm_2e20": phase_binary(torch, case, trace_s)}
     del case

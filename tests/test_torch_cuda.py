@@ -14,7 +14,8 @@ import torch
 from xlayer_prover_tpu_torch import kernels
 from xlayer_prover_tpu_torch.fields import gl
 from xlayer_prover_tpu_torch.models.toy import fib
-from xlayer_prover_tpu_torch.ops import merkle, poseidon_bn254, poseidon_gl
+from xlayer_prover_tpu_torch.ops import (bn254_mont, merkle, poseidon_bn254,
+                                         poseidon_gl)
 from xlayer_prover_tpu_torch.stark import commitment, prover, verifier
 
 P = gl.P
@@ -129,7 +130,7 @@ def _fr_states(gen, n, t):
     for k, e in enumerate(FR_EDGES):
         vals[k * t:(k + 1) * t] = [e] * t
     return vals, torch.from_numpy(
-        poseidon_bn254.to_limbs(vals).view(np.int64)).reshape(n, t, 4)
+        bn254_mont.to_words(vals)).reshape(n, t, 4)
 
 
 @pytest.mark.parametrize("t", [2, 3, 5, 9, 14, 17])
@@ -141,7 +142,7 @@ def test_bn254_permute_kernel_matches_plain(gen, cuda_device, t):
     assert kernels.LAUNCHES["poseidon_bn254_permute"] == before + 1
     assert torch.equal(got, poseidon_bn254._permute_plain(x, t))
     for k in (0, 3, 5, 7):
-        assert poseidon_bn254.from_limbs(gl.to_u64_np(got[k])) == \
+        assert bn254_mont.from_words(got[k]) == \
             poseidon_bn254.host_permute(vals[k * t:(k + 1) * t])
     with pytest.raises(ValueError):
         poseidon_bn254.permute(x[:, :, :2].contiguous(), t)
@@ -158,7 +159,7 @@ def test_bn254_leaf_hash_kernel_matches_plain(gen, cuda_device, width):
     got = poseidon_bn254.leaf_hash(t, width)
     assert kernels.LAUNCHES["poseidon_bn254_leaf_hash"] == before + 1
     assert torch.equal(got, poseidon_bn254._leaf_hash_plain(t, width))
-    assert poseidon_bn254.from_limbs(gl.to_u64_np(got[11:13])) == [
+    assert bn254_mont.from_words(got[11:13]) == [
         poseidon_bn254.leaf_hash_host([int(v) for v in rows[k]])
         for k in (11, 12)]
 
@@ -191,3 +192,200 @@ def test_fib_bn128_proof_on_cuda_equals_jax_fixture(cuda_device):
     proof = prover.gen_proof(setup, cm1, publics)
     assert proof.to_json() == fixtures.read("fib_bn128_n4_q2")
     assert verifier.verify(air, setup.verkey, proof)
+
+
+# ---------------------------------------------------------------------------
+# Groth16's kernels: the BN254 MSM, fixed-base multiplication, the Fr NTT
+# ---------------------------------------------------------------------------
+
+def _words(values, device):
+    return torch.from_numpy(bn254_mont.to_words(values)).to(device)
+
+
+def _points(group, n, a, b):
+    """(a + i b) G for i < n, affine host points, one host addition each
+    (G1's or G2's generator)."""
+    from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
+    if group == "g1":
+        g = bn254.g1_from_affine(bn254.G1_GEN)
+        cur, step = bn254.g1_mul(g, a), bn254.g1_mul(g, b)
+        out = []
+        for _ in range(n):
+            out.append(bn254.g1_to_affine(cur))
+            cur = bn254.g1_add(cur, step)
+        return out
+    cur = bn254_tower.g2_mul(bn254_tower.G2_GEN, a)
+    step = bn254_tower.g2_mul(bn254_tower.G2_GEN, b)
+    out = []
+    for _ in range(n):
+        out.append(cur)
+        cur = bn254_tower.g2_add(cur, step)
+    return out
+
+
+def msm_case(group, n, seed):
+    """n points and scalars with every edge of the kernels: infinity, zero
+    scalars, r - 1, a point repeated under one digit, a point beside its
+    negation, and a bucket that holds half of the points (scalar 1, as
+    Groth16 witnesses have) -> (host points, scalars, point words)."""
+    import random
+
+    from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
+    from xlayer_prover_tpu_torch.ops import bn254_msm
+    rng = random.Random(seed)
+    r = bn254.R
+    pts = _points(group, n, rng.randrange(r), rng.randrange(r))
+    sc = [rng.randrange(r) for _ in range(n)]
+    neg = (bn254_tower.g2_neg if group == "g2" else lambda p: (
+        p[0], (bn254.P - p[1]) % bn254.P))
+    pts[3] = None
+    pts[5], sc[5] = pts[4], sc[4]
+    pts[7], sc[7] = neg(pts[6]), sc[6]
+    pts[8:16] = [pts[8]] * 8
+    sc[8:16] = [sc[8]] * 8
+    sc[0] = sc[1] = 0
+    sc[2] = r - 1
+    for i in range(32, n // 2):
+        sc[i] = 1
+    words = bn254_msm.g2_words(pts) if group == "g2" else \
+        bn254_msm.g1_words(pts)
+    return pts, sc, torch.from_numpy(words)
+
+
+@pytest.mark.parametrize("group,n", [("g1", 4096), ("g2", 1024),
+                                     ("g1", 1 << 14), ("g2", 1 << 14)])
+def test_bn254_msm_kernel_matches_plain(cuda_device, group, n):
+    from xlayer_prover_tpu_torch.ops import bn254_msm
+    _pts, sc, words = msm_case(group, n, 20261017)
+    x, s = words.to(cuda_device), _words(sc, cuda_device)
+    fn = getattr(bn254_msm, f"msm_{group}")
+    F = bn254_msm.FQ1_OPS if group == "g1" else bn254_msm.FQ2_OPS
+    affine = getattr(bn254_msm, f"to_affine_{group}")
+    name = f"bn254_msm_{group}"
+    before = kernels.LAUNCHES[name]
+    got = fn(x, s)
+    assert kernels.LAUNCHES[name] == before + 1
+    assert got.device.type == "cuda"
+    assert affine(got) == affine(bn254_msm._msm_plain(F, x, s))
+    assert affine(fn(x, torch.zeros_like(s))) is None
+    assert affine(fn(x[:1], s[2:3])) == affine(
+        bn254_msm._msm_plain(F, x[:1], s[2:3]))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bn254_msm_kernel_at_main_path_windows(cuda_device, group):
+    """2^20 points (16-bit windows, as the devnet root's MSMs) made by the
+    fixed-base kernel, every 128th scalar and the edge rows of msm_case
+    kept and the rest 0: the kernel equals the plain version over the kept
+    rows (the others add nothing)."""
+    import random
+
+    from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
+    from xlayer_prover_tpu_torch.ops import bn254_msm
+    n = 1 << 20
+    assert bn254_msm.window_bits(n) == 16
+    rng = random.Random(20261018)
+    r = bn254.R
+    gen = bn254.G1_GEN if group == "g1" else bn254_tower.G2_GEN
+    x = getattr(bn254_msm, f"fixed_base_{group}")(gen, _words(
+        [rng.randrange(1, 1 << 64) for _ in range(n)], cuda_device))
+    _pts, sc, edge = msm_case(group, 64, 20261019)
+    x[:64] = edge.to(cuda_device)
+    keep = torch.arange(n, device=cuda_device)
+    keep = (keep % 128 == 0) | (keep < 64)
+    sc = sc + [rng.randrange(r) if k % 128 == 0 else 0
+               for k in range(64, n)]
+    sc[n // 4:n // 2:128] = [1] * len(sc[n // 4:n // 2:128])
+    s = _words(sc, cuda_device)
+    F = bn254_msm.FQ1_OPS if group == "g1" else bn254_msm.FQ2_OPS
+    affine = getattr(bn254_msm, f"to_affine_{group}")
+    got = getattr(bn254_msm, f"msm_{group}")(x, s)
+    assert affine(got) == affine(bn254_msm._msm_plain(F, x[keep], s[keep]))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bn254_fixed_base_kernel_matches_plain(cuda_device, group):
+    import random
+
+    from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
+    from xlayer_prover_tpu_torch.ops import bn254_msm
+    rng = random.Random(7)
+    r = bn254.R
+    ks = [0, 1, 2, r - 1, r - 2, 1 << 253] + \
+        [rng.randrange(r) for _ in range(1018)]
+    s = _words(ks, cuda_device)
+    gen = bn254.G1_GEN if group == "g1" else bn254_tower.G2_GEN
+    F = bn254_msm.FQ1_OPS if group == "g1" else bn254_msm.FQ2_OPS
+    fn = getattr(bn254_msm, f"fixed_base_{group}")
+    name = f"bn254_fixed_base_{group}"
+    before = kernels.LAUNCHES[name]
+    got = fn(gen, s)
+    assert kernels.LAUNCHES[name] == before + 1
+    assert torch.equal(got, bn254_msm._fixed_base_plain(F, gen, s))
+    assert not got[0].any()
+    pts = getattr(bn254_msm, f"{group}_points")(got[3:5].cpu())
+    if group == "g1":
+        g = bn254.g1_from_affine(bn254.G1_GEN)
+        assert pts == [bn254.g1_to_affine(bn254.g1_mul(g, k))
+                       for k in ks[3:5]]
+    else:
+        assert pts == [bn254_tower.g2_mul(gen, k) for k in ks[3:5]]
+
+
+@pytest.mark.parametrize("bits", [0, 1, 2, 7, 12, 20, 21])
+def test_fr_ntt_kernel_matches_plain(cuda_device, bits):
+    import random
+
+    from xlayer_prover_tpu_torch.fields import bn254
+    from xlayer_prover_tpu_torch.ops import ntt_fr
+    rng = random.Random(bits)
+    vals = [rng.randrange(bn254.R) for _ in range(1 << bits)]
+    vals[0] = bn254.R - 1
+    x = _words(vals, cuda_device)
+    for inverse in (False, True):
+        before = kernels.LAUNCHES["fr_ntt"]
+        got = ntt_fr.ntt(x, inverse)
+        assert kernels.LAUNCHES["fr_ntt"] == before + 1
+        assert torch.equal(got, ntt_fr._ntt_plain(x, inverse))
+    assert torch.equal(ntt_fr.ntt(ntt_fr.ntt(x), inverse=True), x)
+
+
+def test_fr_mul_sub_kernel_matches_plain(cuda_device):
+    import random
+
+    from xlayer_prover_tpu_torch.fields import bn254
+    from xlayer_prover_tpu_torch.ops import ntt_fr
+    rng = random.Random(3)
+    r = bn254.R
+    a, b, c = (_words([0, 1, r - 1] + [rng.randrange(r) for _ in range(997)],
+                      cuda_device) for _ in range(3))
+    before = kernels.LAUNCHES["fr_mul_sub"]
+    got = ntt_fr.mul_sub(a, b, c)
+    assert kernels.LAUNCHES["fr_mul_sub"] == before + 1
+    assert torch.equal(got, ntt_fr._mul_sub_plain(a, b, c))
+
+
+def test_groth16_on_cuda_equals_cpu(cuda_device):
+    """Setup and proof of the cubic circuit with random.Random(42) on the
+    card and on the CPU (the plain versions): the same keys and proof."""
+    import dataclasses
+    import random
+
+    from xlayer_prover_tpu_torch.fields.bn254 import R
+    from xlayer_prover_tpu_torch.snark import groth16
+    from xlayer_prover_tpu_torch.snark.r1cs import R1CSBuilder
+    b = R1CSBuilder()
+    out = b.public((27 + 3 + 5) % R)
+    xw = b.wire(3)
+    x3 = b.mul(b.mul(xw, xw), xw)
+    b.assert_eq_lc({x3: 1, xw: 1}, 5, out)
+    r1cs, wit = b.build(), b.witness()
+    results = []
+    for dev in (cuda_device, "cpu"):
+        rng = random.Random(42)
+        pk, vk = groth16.setup(r1cs, rng=rng, device=dev)
+        proof = groth16.prove(pk, r1cs, wit, rng=rng)
+        hpk, hvk = groth16.keys_to_host(pk, vk)
+        results.append((dataclasses.asdict(hpk), hvk, proof))
+    assert results[0] == results[1]
+    assert groth16.verify(results[0][1], results[0][2], [wit[1]])

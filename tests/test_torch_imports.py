@@ -48,8 +48,12 @@ def test_port_imports_no_jax(path):
 
 @pytest.mark.parametrize("module", [
     "ops/poseidon_bn254.py", "stark/commitment.py", "fields/bn254.py",
-    "snark/r1cs.py", "snark/final_circuit.py", "recursion/stack.py"])
+    "snark/r1cs.py", "snark/final_circuit.py", "recursion/stack.py",
+    "fields/bn254_tower.py", "ops/bn254_mont.py", "ops/bn254_msm.py",
+    "ops/ntt_fr.py", "snark/groth16.py", "snark/zkey.py",
+    "snark/snarkjs_io.py"])
 def test_final_stage_modules_are_checked(module):
-    """The final stage's modules (the BN128 scheme, the R1CS) are among
-    the sources the guard above reads."""
+    """The final stage's modules (the BN128 scheme, the R1CS, Groth16 and
+    its curve, NTT and file-format modules) are among the sources the
+    guard above reads."""
     assert ROOT / "xlayer_prover_tpu_torch" / module in SOURCES

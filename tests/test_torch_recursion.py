@@ -299,15 +299,13 @@ def test_recursive_proof_json_round_trip(name):
     assert stack.RecursiveProof.from_json(json.loads(text)) == rp
 
 
-def test_bn128_stages_are_not_ported(rec1_fib):
-    """RecursiveF and the R1CS are ported (tests/test_torch_recursive_f.py);
-    what still raises is Groth16: finalize(wrap="groth16") with its default
-    snark=True names it before any work."""
+def test_finalize_refuses_unknown_wrap_before_work(rec1_fib):
+    """finalize refuses a wrap it does not know before any work: no
+    recursive1 engine is built and no key is cached."""
     (air, *_), _ = rec1_fib
     st = stack.RecursionStack(air, [0, 0, 0, 0], device="cpu")
-    for kw in ({}, {"snark": True}):
-        with pytest.raises(NotImplementedError, match="Groth16"):
-            st.finalize(None, wrap="groth16", **kw)
+    with pytest.raises(ValueError, match="wrap"):
+        st.finalize(None, wrap="plonk")
     assert st._rec1 is None and not st._aux
 
 

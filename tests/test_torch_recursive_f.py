@@ -30,6 +30,7 @@ from xlayer_prover_tpu.stark import prover as jprover
 from xlayer_prover_tpu.stark.proof import StarkProof as JStarkProof
 from xlayer_prover_tpu_torch.fields import bn254
 from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
+from xlayer_prover_tpu_torch.ops.bn254_mont import from_words, to_words
 from xlayer_prover_tpu_torch.recursion import engine, stack
 from xlayer_prover_tpu_torch.snark import final_circuit, r1cs
 from xlayer_prover_tpu_torch.stark import commitment, prover, verifier
@@ -47,8 +48,7 @@ CUH = os.path.join(fixtures.ROOT, "xlayer_prover_tpu_torch", "csrc",
 
 
 def limbs_tensor(values, shape):
-    return torch.from_numpy(pbn.to_limbs(values).view(np.int64)).reshape(
-        *shape, 4)
+    return torch.from_numpy(to_words(values)).reshape(*shape, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -83,7 +83,7 @@ def test_plain_permutation_matches_host_and_jax(t):
     states.append([(1 << 256) - 1 - k for k in range(t)])
     got = pbn.permute(limbs_tensor([v for s in states for v in s],
                                    (len(states), t)), t)
-    got = pbn.from_limbs(got.numpy().view(np.uint64))
+    got = from_words(got)
     want = [v for s in states for v in jpbn.permute(s)]
     assert got == want
     assert [v for s in states for v in pbn.host_permute(s)] == want
@@ -144,8 +144,7 @@ def test_bn128_tree_matches_jax(width, height):
     src = torch.from_numpy(rows.view(np.int64))
     tree = scheme.merkelize(src, width)
     jtree = jcommit.build_tree_bn128(rows)
-    assert [pbn.from_limbs(lv.numpy().view(np.uint64))
-            for lv in tree.levels] == jtree.levels
+    assert [from_words(lv) for lv in tree.levels] == jtree.levels
     root = scheme.root(tree)
     assert root == [jtree.root()]
     idxs = [0, height - 1, height // 2, 7 % height, 0]

@@ -3,8 +3,16 @@ port's proofs against, byte for byte (``StarkProof.to_json()``).
 
     python tools/torch_proof_fixtures.py              # rewrite all
     python tools/torch_proof_fixtures.py binary_sm_n10_q4
+    python tools/torch_proof_fixtures.py g16_devnet_root_r11
 
-writes ``tests/data/<name>.proof.json``.  The JAX prover takes minutes on
+writes ``tests/data/<name>.proof.json``; a Groth16 case (``GROTH16``)
+writes the JAX package's snarkjs files ``verification_key.json``,
+``proof.json`` and ``public.json`` into ``tests/data/<name>/``: the fib
+bn128 final circuit with random.Random(7) (``g16_fib_bn128_r7``, about
+2 min on the CPU) and the devnet root's final circuit over the committed
+RecursiveF proof with random.Random(11) (``g16_devnet_root_r11``, about
+12 min: the recursion pair's build, the R1CS, the JAX package's native
+fixed-base and MSMs, its Python NTTs).  The JAX prover takes minutes on
 the CPU for these cases, so the fast tests read the files and the slow
 tests (``-m slow``) prove each case with the JAX package again and compare.
 The devnet batch 0 proof (``devnet_batch0_n16_q4``) is the committed
@@ -22,6 +30,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import random
 import sys
 
 import numpy as np
@@ -265,12 +274,11 @@ def devnet_root_proof(pkg: str):
         return proof_mod.StarkProof.from_json(json.load(f)["proof"])
 
 
-def recf_devnet_root_jax() -> str:
-    """RecursiveF (4 queries) over the committed devnet aggregate root,
-    proven by the JAX package on the CPU: the recursion pair over the
-    devnet AIR and DEVNET_VERKEY with the zkEVM chain spec (its recursive2
-    is the root's verifier), then RecursiveF over recursive2's AIR and
-    verkey.  -> the proof's JSON"""
+def recf_devnet_engine_jax():
+    """The JAX package's RecursiveF engine (4 queries) over the devnet
+    root's verifier: the recursion pair over the devnet AIR and
+    DEVNET_VERKEY with the zkEVM chain spec (its recursive2 is the root's
+    verifier), then RecursiveF over recursive2's AIR and verkey."""
     from xlayer_prover_tpu.recursion import engine, stack
     jeng = devnet_prover("xlayer_prover_tpu")
     link, out_map = stack.zkevm_chain_spec(jeng.air.n_publics)
@@ -280,8 +288,51 @@ def recf_devnet_root_jax() -> str:
     root = devnet_root_proof("xlayer_prover_tpu")
     assert [int(v) for v in rec2.verkey] == \
         [int(v) for v in root.publics[:4]]
-    recf = engine.RecursiveF(rec2.air, rec2.verkey, n_queries=4)
-    return recf.prove(root).to_json()
+    return engine.RecursiveF(rec2.air, rec2.verkey, n_queries=4)
+
+
+def recf_devnet_root_jax() -> str:
+    """RecursiveF over the committed devnet aggregate root, proven by the
+    JAX package on the CPU.  -> the proof's JSON"""
+    recf = recf_devnet_engine_jax()
+    return recf.prove(devnet_root_proof("xlayer_prover_tpu")).to_json()
+
+
+def _groth16_jax(air, verkey, proof, rng):
+    """The JAX package's Groth16 over the final circuit of a bn128 proof:
+    setup, then prove, with one `rng` (as its RecursionStack.finalize
+    does).  -> (vk, proof, publics)"""
+    from xlayer_prover_tpu.snark import final_circuit, groth16
+    r1cs, witness, _fb = final_circuit.build_final_circuit(air, verkey,
+                                                           proof)
+    pk, vk = groth16.setup(r1cs, rng=rng)
+    g_proof = groth16.prove(pk, r1cs, witness, rng=rng)
+    publics = witness[1:1 + r1cs.n_public]
+    assert groth16.verify(vk, g_proof, publics)
+    return vk, g_proof, publics
+
+
+def g16_fib_bn128_jax():
+    """Groth16 over the fib bn128 final circuit with random.Random(7), as
+    the JAX package's tests/test_final_circuit.py
+    test_groth16_final_roundtrip runs it."""
+    from xlayer_prover_tpu.stark import prover
+    air, _layout, const_np, cm1, publics = fib_bn128_case("xlayer_prover_tpu")
+    setup = prover.Setup.build(air, const_np)
+    proof = prover.gen_proof(setup, cm1, publics)
+    return _groth16_jax(air, setup.verkey, proof, random.Random(7))
+
+
+def g16_devnet_root_jax():
+    """Groth16 over the final circuit of the committed devnet RecursiveF
+    proof (``recF_devnet_root_q4``) with random.Random(11): the cascade's
+    finalize(wrap="groth16", rng=random.Random(11))
+    (tools/run_a7_cascade.py)."""
+    from xlayer_prover_tpu.stark.proof import StarkProof
+    recf = recf_devnet_engine_jax()
+    proof = StarkProof.from_json(read("recF_devnet_root_q4"))
+    return _groth16_jax(recf.air, recf.setup.verkey, proof,
+                        random.Random(11))
 
 
 CASES = {"binary_sm_n10_q4": binary_sm_case,
@@ -294,6 +345,11 @@ CASES = {"binary_sm_n10_q4": binary_sm_case,
 # proofs that are not one Setup + gen_proof of a case: name -> the JAX
 # package's proof JSON
 PROOFS = {"recF_devnet_root_q4": recf_devnet_root_jax}
+# Groth16 proofs of the JAX package: name -> (vk, proof, publics), written
+# as snarkjs files (SNARKJS_FILES) into tests/data/<name>/
+GROTH16 = {"g16_fib_bn128_r7": g16_fib_bn128_jax,
+           "g16_devnet_root_r11": g16_devnet_root_jax}
+SNARKJS_FILES = ("verification_key.json", "proof.json", "public.json")
 # the verkey (constant-tree root) of the devnet AIR at
 # DEVNET_GEOMETRY: the port's Setup.build on the CPU gave these limbs (the
 # slow tests/test_torch_recursion.py::test_devnet_verkey_is_the_setup_root
@@ -317,6 +373,24 @@ def read(name: str) -> str:
     return json.loads(text)["proof"] if name in IN_PLACE else text
 
 
+def snarkjs_dir(name: str) -> str:
+    return os.path.join(DATA, name)
+
+
+def write_groth16(name: str, out_dir: str):
+    """The JAX package's Groth16 case `name` as its snarkjs files
+    (verification_key.json, proof.json, public.json) in `out_dir`."""
+    from xlayer_prover_tpu.snark import snarkjs_io
+    vk, g_proof, publics = GROTH16[name]()
+    os.makedirs(out_dir, exist_ok=True)
+    vk_path, proof_path, pub_path = (os.path.join(out_dir, f)
+                                     for f in SNARKJS_FILES)
+    snarkjs_io.export_vk(vk, vk_path)
+    snarkjs_io.export_proof(g_proof, proof_path)
+    snarkjs_io.export_publics(publics, pub_path)
+    assert snarkjs_io.verify_files(vk_path, pub_path, proof_path)
+
+
 def jax_proof(name: str) -> str:
     """The JAX package's proof of case `name` on the CPU, as JSON."""
     if name in PROOFS:
@@ -332,11 +406,15 @@ def main(names) -> int:
     import jax
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
-    for name in names or [c for c in (*CASES, *PROOFS)
+    for name in names or [c for c in (*CASES, *PROOFS, *GROTH16)
                           if c not in IN_PLACE]:
         if name in IN_PLACE:
             raise SystemExit(f"{path(name)} is read in place, never "
                              f"rewritten")
+        if name in GROTH16:
+            write_groth16(name, snarkjs_dir(name))
+            print(f"wrote {snarkjs_dir(name)}")
+            continue
         text = jax_proof(name)
         with open(path(name), "w") as f:
             f.write(text)

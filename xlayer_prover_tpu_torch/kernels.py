@@ -44,12 +44,25 @@ _LIBS = {
             _P, _P, ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int, _P,
             ctypes.c_int, ctypes.c_int, _P],
     }),
+    **{f"bn254_msm_{g}": (f"bn254_msm_{g}.cu", {
+        f"bn254_msm_{g}_launch": [
+            _P, ctypes.c_int64, _P, _P, _P, ctypes.c_int64, _P, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _P, _P, _P],
+        f"bn254_fixed_base_{g}_launch": [_P, _P, _P, ctypes.c_int64, _P],
+    }) for g in ("g1", "g2")},
+    "fr_ntt": ("fr_ntt.cu", {
+        "fr_ntt_launch": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P,
+                          ctypes.c_int, _P],
+        "fr_mul_sub_launch": [_P, _P, _P, _P, ctypes.c_int64, _P],
+    }),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {"gl_mul": 0, "poseidon_permute": 0, "poseidon_linear_hash": 0,
-            "poseidon_bn254_permute": 0, "poseidon_bn254_leaf_hash": 0}
+            "poseidon_bn254_permute": 0, "poseidon_bn254_leaf_hash": 0,
+            "bn254_msm_g1": 0, "bn254_msm_g2": 0, "bn254_fixed_base_g1": 0,
+            "bn254_fixed_base_g2": 0, "fr_ntt": 0, "fr_mul_sub": 0}
 _loaded: dict = {}
 
 

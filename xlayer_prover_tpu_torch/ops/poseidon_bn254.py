@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from . import bn254_mont
 
 P = 21888242871839275222246405745257275088548364400416034343698204186575808495617
 
@@ -51,7 +52,7 @@ _DATA_SHA256 = \
     "2121854192b5df42a61365700075cb3a394ec9b1ac79f6e03f9cf972b06424e6"
 
 # the kernels' Montgomery arithmetic (csrc/bn254.cuh): R = 2^256, 8 words
-MONT_R = 1 << 256
+MONT_R = bn254_mont.MONT
 MONT_N0INV = (-pow(P, -1, 1 << 32)) % (1 << 32)
 MONT_R2 = MONT_R * MONT_R % P
 MASK64 = (1 << 64) - 1
@@ -150,23 +151,6 @@ def leaf_hash_host(row) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Limb conversions: Fr <-> four int64 64-bit patterns
-# ---------------------------------------------------------------------------
-
-def to_limbs(values) -> np.ndarray:
-    """Python ints (< 2^256) -> (len, 4) uint64 little-endian limbs."""
-    return np.array([[(int(v) >> (64 * k)) & MASK64 for k in range(4)]
-                     for v in values], dtype=np.uint64).reshape(-1, 4)
-
-
-def from_limbs(arr) -> list:
-    """(..., 4) uint64 limbs (numpy) -> flat list of Python ints."""
-    a = np.asarray(arr, dtype=np.uint64).reshape(-1, 4)
-    return [int(r[0]) | int(r[1]) << 64 | int(r[2]) << 128 | int(r[3]) << 192
-            for r in a]
-
-
-# ---------------------------------------------------------------------------
 # The kernels' constant table
 # ---------------------------------------------------------------------------
 
@@ -203,53 +187,20 @@ def kernel_table(t: int) -> np.ndarray:
 # The plain PyTorch version: Montgomery arithmetic on 16-bit limbs
 # ---------------------------------------------------------------------------
 #
-# An Fr value is L = 17 int64 limbs of 16 bits, in Montgomery form with
-# R' = 2^272.  Limbs are kept "almost normal" (each in [0, 2^16 + 37]) and
-# values only bounded (a few P), never canonical, until the last
-# conversion.  A product is the limbs' convolution (34 columns, each below
-# 2^41, summed in float64) followed by a Montgomery reduction REDC whose
-# steps are all parallel over the limbs: carry passes (x >> 16 added one
-# limb up), the quotient m = T N' mod R' as a product by a constant,
-# T + m P, and the division by R'.  Since P / R' < 2^-18, a product comes
-# out below 2.1 P + T / R' with T / R' tiny, so sums of many terms need
-# no reduction.  A product by constants (MDS, S-vectors) is a float64
-# matmul against the constant's Toeplitz matrix, exact because every sum
-# stays below 2^53.  Nothing here models the kernels' 8 x 32-bit CIOS:
+# Fr values in Montgomery form over L = 17 limbs of 16 bits, R' = 2^272
+# (ops/bn254_mont.py).  Nothing here models the kernels' 8 x 32-bit CIOS:
 # both compute the same field elements, canonical on output.
 
-L = 17
-LIMB = 16
-LMASK = (1 << LIMB) - 1
-R_PLAIN = 1 << (LIMB * L)
-N_PRIME = (-pow(P, -1, R_PLAIN)) % R_PLAIN
-R2_PLAIN = R_PLAIN * R_PLAIN % P
+_FR = bn254_mont.FR
+L = bn254_mont.L
+_redc, _mul, _mont = _FR.redc, _FR.mul, _FR.mont
+_to_plain, _from_plain = _FR.to_mont, _FR.from_mont
+_toeplitz = bn254_mont.toeplitz
 
 
-def _limbs16(v: int, n: int = L) -> list:
-    return [(v >> (LIMB * k)) & LMASK for k in range(n)]
-
-
-def _toeplitz(vec) -> np.ndarray:
-    """(L, 2L) float64: x @ T is the convolution of x's limbs with vec."""
-    out = np.zeros((L, 2 * L), dtype=np.float64)
-    for a in range(L):
-        out[a, a:a + L] = vec
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _plain_consts(device: torch.device):
-    """The Montgomery reduction's constant matrices on `device`."""
-    n_t = _toeplitz(_limbs16(N_PRIME))[:, :L]          # m = T_low N' mod R'
-    p_t = _toeplitz(_limbs16(P))                       # m P
-    r2 = torch.tensor(_limbs16(R2_PLAIN), dtype=torch.int64, device=device)
-    p16 = torch.tensor(_limbs16(P), dtype=torch.int64, device=device)
-    return (torch.from_numpy(n_t).to(device), torch.from_numpy(p_t).to(device),
-            r2, p16)
-
-
-def _mont(v: int) -> list:
-    return _limbs16(v * R_PLAIN % P)
+def _pow5(x):
+    x2 = _mul(x, x)
+    return _mul(_mul(x2, x2), x)
 
 
 @functools.lru_cache(maxsize=None)
@@ -298,82 +249,6 @@ def _plain_tables(t: int, device: torch.device) -> dict:
     return {"c": dev(np.array([_mont(v) for v in c]), torch.int64),
             "m": dev(mat(m)), "p": dev(mat(pmat)), "a_dot": dev(a_dot),
             "k": dev(k), "v_end": dev(v_end), "nrp": nrp}
-
-
-def _carry(x, passes: int):
-    """`passes` parallel carry passes over the last dim: each limb keeps
-    its low 16 bits and hands the rest one limb up (the top limb's carry
-    is dropped: the callers' bounds make it zero, or a multiple of R')."""
-    for _ in range(passes):
-        c = x >> LIMB
-        x = x & LMASK
-        x[..., 1:] += c[..., :-1]
-    return x
-
-
-def _conv(a, b):
-    """(..., L) x (..., L) -> (..., 2L) limb convolution, summed in
-    float64 (exact: the limbs stay below 2^18, so a column below 2^41)."""
-    af, bf = a.to(torch.float64), b.to(torch.float64)
-    out = torch.zeros((*af.shape[:-1], 2 * L), dtype=torch.float64,
-                      device=a.device)
-    for i in range(L):
-        out[..., i:i + L].addcmul_(af[..., i:i + 1], bf)
-    return out.to(torch.int64)
-
-
-def _redc(T):
-    """Montgomery reduction of (..., 2L) columns (each < 2^47): T / R' mod
-    P as almost-normal limbs (each <= 2^16 + 37), value < T / R' + 2.1 P.
-    Each carry pass shrinks a column by 16 bits; the passes below are the
-    fewest that keep every float64 product exact and the division's
-    carry to 0 or 1."""
-    n_t, p_t, _r2, _p16 = _plain_consts(T.device)
-    T = _carry(T, 1)                                  # limbs < 2^28.1
-    m = (T[..., :L].to(torch.float64) @ n_t).to(torch.int64)
-    m = _carry(m, 2)                                  # m < 2.07 R'
-    U = _carry(T + (m.to(torch.float64) @ p_t).to(torch.int64), 2)
-    # U's low L limbs (each <= 2^16 + 36) are divisible by R' and below
-    # 2 R': they hold 0 or exactly R', which the division carries as 1
-    out = U[..., L:].clone()
-    out[..., 0] += (U[..., :L] != 0).any(-1).to(torch.int64)
-    return out
-
-
-def _mul(a, b):
-    return _redc(_conv(a, b))
-
-
-def _pow5(x):
-    x2 = _mul(x, x)
-    return _mul(_mul(x2, x2), x)
-
-
-def _to_plain(states):
-    """(..., 4) int64 64-bit limbs -> (..., L) Montgomery limbs."""
-    parts = [(states[..., k // 4] >> (LIMB * (k % 4))) & LMASK
-             for k in range(16)]
-    x = torch.stack(parts + [torch.zeros_like(parts[0])], dim=-1)
-    _n, _p, r2, _p16 = _plain_consts(states.device)
-    return _mul(x, r2.expand_as(x))
-
-
-def _from_plain(x):
-    """(..., L) Montgomery limbs -> (..., 4) canonical 64-bit limbs."""
-    _n, _p, _r2, p16 = _plain_consts(x.device)
-    y = _redc(torch.nn.functional.pad(x, (0, L)))      # value < 2.1 P
-    for k in range(L - 1):                             # exact carries
-        y[..., k + 1] += y[..., k] >> LIMB
-        y[..., k] &= LMASK
-    for _ in range(2):                                 # y - P while >= P
-        d = y - p16
-        for k in range(L - 1):
-            d[..., k + 1] += d[..., k] >> LIMB
-            d[..., k] &= LMASK
-        y = torch.where((d[..., L - 1] >= 0).unsqueeze(-1), d, y)
-    out = [y[..., 4 * w] | (y[..., 4 * w + 1] << 16) | (y[..., 4 * w + 2] << 32)
-           | (y[..., 4 * w + 3] << 48) for w in range(4)]
-    return torch.stack(out, dim=-1)
 
 
 def _permute_chunk(states, t: int):

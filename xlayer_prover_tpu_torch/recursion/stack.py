@@ -1,9 +1,10 @@
 """RecursionStack: the proof cascade manager.
 
 The port's own copy of ``xlayer_prover_tpu/recursion/stack.py``:
-``finalize(wrap="groth16", snark=False)`` proves RecursiveF (the BN128
-commitment scheme) and checks the BN254 final circuit's R1CS witness;
-Groth16 (``snark=True``) is not ported.
+``finalize(wrap="groth16")`` proves RecursiveF (the BN128 commitment
+scheme), builds the BN254 final circuit's R1CS and, with ``snark=True``,
+proves it with Groth16 on the card (``snark/groth16.py``); ``snark=False``
+stops at the R1CS witness check.
 
 Mirrors the reference cascade (prover.cpp:392-825): batch STARK ->
 recursive1 (verifier-as-circuit compression) -> recursive2 aggregation.
@@ -26,6 +27,9 @@ import dataclasses
 import json
 import time
 
+import torch
+
+from .. import device as devices
 from ..stark.proof import StarkProof
 from .engine import Recursive1, Recursive2, RecursiveF, build_recursion_pair
 
@@ -74,7 +78,8 @@ class RecursionStack:
         self.timings: dict = {}    # the pair build's seconds
         self._rec1: Recursive1 = None
         self._rec2: Recursive2 = None
-        self._aux: dict = {}       # ("recF", level) -> RecursiveF
+        self._aux: dict = {}       # ("recF", level) -> RecursiveF,
+        #                            ("g16", level) -> Groth16 (pk, vk)
 
     # -- engines ---------------------------------------------------------
     def _ensure_pair(self):
@@ -123,26 +128,28 @@ class RecursionStack:
         wrap="groth16": re-prove through RecursiveF (the same verifier
         circuit over BN254 Poseidon commitments, built once per level) and
         express ITS verifier as a BN254-Fr R1CS (snark/final_circuit.py).
-        ``snark=False`` stops after the R1CS witness check and returns
-        {"final": "r1cs", "n_constraints", "publics", "proof"} ("proof":
-        the RecursiveF proof); ``snark=True`` (Groth16 over that R1CS,
-        with `rng`) is not ported.  `timings` receives the seconds of the
-        RecursiveF build (``recF_*``, when it is built), its proof's
-        rounds, the R1CS build (``r1cs_s``) and its check (``check_s``)."""
+        ``snark=True`` proves that R1CS with Groth16 (set up once per
+        level, with `rng`, then proven with the same `rng`), verifies the
+        proof and returns {"final": "groth16", "proof", "vk", "publics",
+        "recf_proof"}, the on-chain object; ``snark=False`` stops after
+        the R1CS witness check and returns {"final": "r1cs",
+        "n_constraints", "publics", "proof", "recf_proof"}.  "recf_proof"
+        is the RecursiveF proof (``snark=False``'s "proof").  `timings`
+        receives the seconds of the RecursiveF build (``recF_*``, when it
+        is built), its proof's rounds, the R1CS build (``r1cs_s``), and
+        then its check (``check_s``) or the Groth16 setup
+        (``g16_setup_s``, when it runs, with its host part
+        ``g16_wire_polys_s``), proof (``g16_prove_s``, with h's
+        ``g16_h_s``) and verification (``g16_verify_s``)."""
         if wrap not in ("stark", "groth16"):
             raise ValueError(f"unknown wrap {wrap!r}")
-        if wrap == "groth16" and snark:
-            raise NotImplementedError(
-                "finalize(wrap='groth16', snark=True) needs Groth16 over the "
-                "final circuit's R1CS, which is not ported yet (ROADMAP.md "
-                "queue 1, item 13c); snark=False stops at the R1CS witness")
         rp = self.lift(proof)
         if not self.verify(rp):
             raise ValueError("the recursive proof does not verify")
         if wrap == "stark":
             return rp
 
-        from ..snark import final_circuit
+        from ..snark import final_circuit, groth16
         from ..snark.r1cs import check_witness
         timings = {} if timings is None else timings
         key = ("recF", rp.level)
@@ -160,11 +167,42 @@ class RecursionStack:
         r1cs, witness, _fb = final_circuit.build_final_circuit(
             eng.air, eng.setup.verkey, bn_proof)
         timings["r1cs_s"] = time.perf_counter() - t0
+        publics = witness[1:1 + r1cs.n_public]
+        if not snark:
+            t0 = time.perf_counter()
+            satisfied = check_witness(r1cs, witness)
+            timings["check_s"] = time.perf_counter() - t0
+            if not satisfied:
+                raise ValueError("the final circuit's witness does not "
+                                 "satisfy its R1CS")
+            return {"final": "r1cs", "n_constraints": len(r1cs.constraints),
+                    "publics": publics, "proof": bn_proof,
+                    "recf_proof": bn_proof}
+        g16_key = ("g16", rp.level)
+        pkvk = self._aux.get(g16_key)
+        if pkvk is None:
+            t0 = time.perf_counter()
+            pkvk = groth16.setup(r1cs, rng=rng, device=self.device,
+                                 timings=timings)
+            _sync(self.device)
+            timings["g16_setup_s"] = time.perf_counter() - t0
+            self._aux[g16_key] = pkvk
+        pk, vk = pkvk
         t0 = time.perf_counter()
-        satisfied = check_witness(r1cs, witness)
-        timings["check_s"] = time.perf_counter() - t0
-        if not satisfied:
-            raise ValueError("the final circuit's witness does not satisfy "
-                             "its R1CS")
-        return {"final": "r1cs", "n_constraints": len(r1cs.constraints),
-                "publics": witness[1:1 + r1cs.n_public], "proof": bn_proof}
+        g_proof = groth16.prove(pk, r1cs, witness, rng=rng, timings=timings)
+        timings["g16_prove_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        accepted = groth16.verify(vk, g_proof, publics)
+        timings["g16_verify_s"] = time.perf_counter() - t0
+        if not accepted:
+            raise ValueError("the Groth16 proof of the final circuit does "
+                             "not verify")
+        return {"final": "groth16", "proof": g_proof, "vk": vk,
+                "publics": publics, "recf_proof": bn_proof}
+
+
+def _sync(device):
+    """Wait for the card's queued work (None means the card)."""
+    dev = devices.resolve(device)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

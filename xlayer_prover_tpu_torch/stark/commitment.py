@@ -28,6 +28,7 @@ import torch
 
 from ..fields import gl
 from ..ops import merkle
+from ..ops.bn254_mont import from_words
 from ..ops import poseidon_bn254 as pbn
 from ..ops.poseidon_gl import host_linear_hash, host_permute
 from .transcript import Transcript
@@ -81,7 +82,7 @@ class BN128Tree:
     width: int
 
     def root(self) -> int:
-        return pbn.from_limbs(gl.to_u64_np(self.levels[-1]))[0]
+        return from_words(self.levels[-1])[0]
 
 
 def build_tree_bn128(rows, width: int) -> BN128Tree:
@@ -137,7 +138,7 @@ class BN128Scheme:
         flat = gl.to_u64_np(torch.cat(parts))
         width = source.shape[1]
         rows = flat[:q * width].reshape(q, width)
-        sibs = pbn.from_limbs(flat[q * width:])
+        sibs = from_words(flat[q * width:])
         n_levels = len(tree.levels) - 1
         out = []
         for k in range(q):
