@@ -85,16 +85,19 @@ versions: poseidon_bn254_permute at every width t = 2..17 (edge inputs 0,
 1, r - 1, r, r + 1, 2^256 - 1 and inputs above r included) and on 2^16 of
 the 2^20 t = 17 states it is timed on; poseidon_bn254_leaf_hash at widths
 1, 3, 4, 5, 6, 48, 50, 60 and 519 and at the 2^17 x 60 rows it is timed on.
-And Groth16's kernels: bn254_fixed_base_g1 / _g2 on 2^12 scalars (0, 1,
-2, r - 1, r - 2, 2^253 among them), then bn254_msm_g1 / _g2 on 2^14
-points made by them (points at infinity, zero scalars, r - 1, a repeated
-point, a point beside its negation, a bucket of a quarter of the points;
-10-bit windows, several buckets a running-sum segment) and on the 2^20
-points they are timed on (16-bit windows, as on the main path) with all
-but 8,208 scalars set to 0, fr_ntt at 2^0, 2^1, 2^5, 2^12, on the 2^21
-values it is timed on and as a 2^20 inverse, fr_mul_sub at 2^21 with edge
-values; each timed at the devnet root's shapes (2^20 scalars and points,
-2^21 values).
+And Groth16's kernels: bn254_fixed_base_g1 / _g2 on 2^12 + 37 scalars
+(``bn254_msm.fixed_base_cases``: 0, 1, 255, 256, r - 1, r - 2, 2^253,
+bytes of 0xFF, d 2^(8w) at every window, r and a scalar whose last
+addition doubles, blocks all at infinity, a block with one live lane, a
+ragged last block; their tables' build timed on the host), then
+bn254_msm_g1 / _g2 on 2^14 points made by them (points at infinity,
+zero scalars, r - 1, a repeated point, a point beside its negation, a
+bucket of a quarter of the points; 10-bit windows, several buckets a
+running-sum segment) and on the 2^20 points they are timed on (16-bit
+windows, as on the main path) with all but 8,208 scalars set to 0,
+fr_ntt at 2^0, 2^1, 2^5, 2^12, on the 2^21 values it is timed on and as
+a 2^20 inverse, fr_mul_sub at 2^21 with edge values; each timed at the
+devnet root's shapes (2^20 scalars and points, 2^21 values).
 It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
 final path, this slice's main path, 0 included; ``launches_by_path`` has
 every path's) and ends with
@@ -595,14 +598,17 @@ def phase_g16_kernels(torch, rng):
     def words(vals):
         return torch.from_numpy(bn254_mont.to_words(vals)).to(cuda)
 
-    # -- fixed base: scalars 0, 1, 2, r - 1, r - 2, 2^253 and seeded ------
+    # -- fixed base: the edges of bn254_msm.fixed_base_cases at 2^12 + 37
+    # scalars (a ragged last block, blocks all at infinity, a block with
+    # one live lane), then timed on 2^20 seeded scalars -----------------
     for group, gen, line, ops in (("g1", bn254.G1_GEN, 481, bn254_msm.FQ1_OPS),
                                   ("g2", bn254_tower.G2_GEN, 495,
                                    bn254_msm.FQ2_OPS)):
         fn = getattr(bn254_msm, f"fixed_base_{group}")
-        ks = [0, 1, 2, r - 1, r - 2, 1 << 253] + [
-            int.from_bytes(rng.bytes(32), "little") % r
-            for _ in range(small - 6)]
+        t0 = time.perf_counter()
+        bn254_msm._device_table(gen, cuda)
+        table_s = time.perf_counter() - t0
+        ks = bn254_msm.fixed_base_cases(small + 37, SEED)
         sc = words(ks)
         got = fn(gen, sc)
         ref, plain_ms = _timed(torch, lambda: bn254_msm._fixed_base_plain(
@@ -610,12 +616,16 @@ def phase_g16_kernels(torch, rng):
         err = _max_abs_err(got, ref)
         _require(err == 0, f"bn254_fixed_base_{group} equals its plain "
                  "version")
-        host = getattr(bn254_msm, f"{group}_points")(got[3:4].cpu())[0]
-        want = bn254.g1_to_affine(bn254.g1_mul(bn254.g1_from_affine(gen),
-                                               r - 1)) if group == "g1" \
-            else bn254_tower.g2_mul(gen, r - 1)
-        _require(host == want, f"bn254_fixed_base_{group} of r - 1 equals "
-                 "the host's")
+        w = bn254_msm.FB_CASE_BLOCK
+        live = got[2 * w:4 * w].any(-1).nonzero().flatten().tolist()
+        _require(live == [w + 77], f"bn254_fixed_base_{group} gives "
+                 "zero words for k = 0 and only there")
+        host = getattr(bn254_msm, f"{group}_points")(got[4:6].cpu())
+        want = [bn254.g1_to_affine(bn254.g1_mul(bn254.g1_from_affine(gen), k))
+                if group == "g1" else bn254_tower.g2_mul(gen, k)
+                for k in ks[4:6]]
+        _require(host == want, f"bn254_fixed_base_{group} of r - 1 and "
+                 "r - 2 equals the host's")
         big_sc = words([int.from_bytes(rng.bytes(32), "little") % r
                         for _ in range(big)])
         ms = _cuda_ms(lambda: fn(gen, big_sc), 2)
@@ -624,7 +634,9 @@ def phase_g16_kernels(torch, rng):
             "source": src.format(group), "replaces": msm_cpp.format(line),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **fixed_base_work(group, big_sc), "shape": [big],
-            "plain_shape": [small]})
+            "plain_shape": [len(ks)]})
+        print(f"fixed base {group}: its table of 32 x 255 points built on "
+              f"the host in {table_s:.3f} s", flush=True)
         del big_sc, got, ref
         torch.cuda.empty_cache()
 

@@ -305,14 +305,12 @@ def test_bn254_msm_kernel_at_main_path_windows(cuda_device, group):
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
 def test_bn254_fixed_base_kernel_matches_plain(cuda_device, group):
-    import random
-
+    """2^12 + 37 scalars of bn254_msm.fixed_base_cases (every edge, blocks
+    all at infinity, a block with one live lane, a ragged last block):
+    the kernel equals the plain version bit for bit."""
     from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
     from xlayer_prover_tpu_torch.ops import bn254_msm
-    rng = random.Random(7)
-    r = bn254.R
-    ks = [0, 1, 2, r - 1, r - 2, 1 << 253] + \
-        [rng.randrange(r) for _ in range(1018)]
+    ks = bn254_msm.fixed_base_cases((1 << 12) + 37, 7)
     s = _words(ks, cuda_device)
     gen = bn254.G1_GEN if group == "g1" else bn254_tower.G2_GEN
     F = bn254_msm.FQ1_OPS if group == "g1" else bn254_msm.FQ2_OPS
@@ -323,13 +321,16 @@ def test_bn254_fixed_base_kernel_matches_plain(cuda_device, group):
     assert kernels.LAUNCHES[name] == before + 1
     assert torch.equal(got, bn254_msm._fixed_base_plain(F, gen, s))
     assert not got[0].any()
-    pts = getattr(bn254_msm, f"{group}_points")(got[3:5].cpu())
+    w = bn254_msm.FB_CASE_BLOCK
+    live = got[2 * w:4 * w].any(-1).nonzero().flatten().tolist()
+    assert live == [w + 77]
+    pts = getattr(bn254_msm, f"{group}_points")(got[4:6].cpu())
     if group == "g1":
         g = bn254.g1_from_affine(bn254.G1_GEN)
         assert pts == [bn254.g1_to_affine(bn254.g1_mul(g, k))
-                       for k in ks[3:5]]
+                       for k in ks[4:6]]
     else:
-        assert pts == [bn254_tower.g2_mul(gen, k) for k in ks[3:5]]
+        assert pts == [bn254_tower.g2_mul(gen, k) for k in ks[4:6]]
 
 
 @pytest.mark.parametrize("bits", [0, 1, 2, 7, 12, 20, 21])

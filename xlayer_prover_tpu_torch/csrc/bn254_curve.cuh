@@ -2,8 +2,9 @@
 // twist) in Jacobian coordinates, one template over the coordinate field.
 //
 // Coordinates are Montgomery-form field elements of bn254.cuh, always
-// canonical.  A point is (X, Y, Z) with x = X / Z^2, y = Y / Z^3, and Z = 0
-// at infinity.  The curves are y^2 = x^3 + b with a = 0, so no formula
+// canonical (f_sqr of an Fq2 element takes two Fq products, not three).
+// A point is (X, Y, Z) with x = X / Z^2, y = Y / Z^3, and Z = 0 at
+// infinity.  The curves are y^2 = x^3 + b with a = 0, so no formula
 // below reads b: doubling is dbl-2009-l, the addition of an affine point
 // madd-2007-bl, the addition of two Jacobian points add-2007-bl (the
 // Explicit-Formulas Database).  The additions handle every case: an
@@ -35,6 +36,7 @@ __device__ __forceinline__ void f_sub(Fq& r, const Fq& a, const Fq& b) {
 __device__ __forceinline__ void f_mul(Fq& r, const Fq& a, const Fq& b) {
   mont_mul<FqMod>(r.v, a.v, b.v);
 }
+__device__ __forceinline__ void f_sqr(Fq& r, const Fq& a) { f_mul(r, a, a); }
 __device__ __forceinline__ bool f_is_zero(const Fq& a) {
   uint32_t o = 0;
 #pragma unroll
@@ -94,6 +96,15 @@ __device__ __forceinline__ void f_mul(Fq2& r, const Fq2& a, const Fq2& b) {
   f_sub(s, s, t0);
   f_sub(r.c1, s, t1);
   f_sub(r.c0, t0, t1);
+}
+// (c0 + c1)(c0 - c1) + 2 c0 c1 u: two Fq products
+__device__ __forceinline__ void f_sqr(Fq2& r, const Fq2& a) {
+  Fq s, d, m;
+  f_add(s, a.c0, a.c1);
+  f_sub(d, a.c0, a.c1);
+  f_mul(m, a.c0, a.c1);
+  f_mul(r.c0, s, d);
+  f_add(r.c1, m, m);
 }
 __device__ __forceinline__ bool f_is_zero(const Fq2& a) {
   return f_is_zero(a.c0) && f_is_zero(a.c1);
@@ -179,42 +190,42 @@ __device__ __forceinline__ void jac_store_raw(uint32_t* w, const Jac<F>& p) {
   f_store_raw(w + 2 * FieldWords<F>::N, p.z);
 }
 
-// r = 2 p (dbl-2009-l); r may alias p
+// r = 2 p (dbl-2009-l); r may alias p.  Each coordinate of p is read for
+// the last time before r's is written, and at most four values besides p
+// are live (the G2 kernels' register budget).
 template <class F>
 __device__ void jac_double(Jac<F>& r, const Jac<F>& p) {
   if (jac_is_inf(p)) {
     r = p;
     return;
   }
-  F a, b, c, d, e, f, t, x3, y3, z3;
-  f_mul(a, p.x, p.x);
-  f_mul(b, p.y, p.y);
-  f_mul(c, b, b);
-  f_add(t, p.x, b);
-  f_mul(t, t, t);
-  f_sub(t, t, a);
-  f_sub(t, t, c);
-  f_add(d, t, t);                  // D = 2 ((X + B)^2 - A - C)
-  f_add(e, a, a);
-  f_add(e, e, a);                  // E = 3 A
-  f_mul(f, e, e);
-  f_add(t, d, d);
-  f_sub(x3, f, t);                 // X3 = F - 2 D
-  f_sub(t, d, x3);
-  f_mul(y3, e, t);
+  F a, b, c, d;
+  f_sqr(a, p.x);                   // A = X^2
+  f_sqr(b, p.y);                   // B = Y^2
+  f_sqr(c, b);                     // C = B^2
+  f_add(d, p.x, b);
+  f_sqr(d, d);
+  f_sub(d, d, a);
+  f_sub(d, d, c);
+  f_add(d, d, d);                  // D = 2 ((X + B)^2 - A - C)
+  f_add(b, a, a);
+  f_add(a, b, a);                  // E = 3 A
+  f_mul(b, p.y, p.z);
+  f_add(r.z, b, b);                // Z3 = 2 Y Z (0 if Y = 0)
+  f_sqr(b, a);                     // F = E^2
+  f_sub(b, b, d);
+  f_sub(r.x, b, d);                // X3 = F - 2 D
+  f_sub(d, d, r.x);
+  f_mul(d, a, d);
   f_add(c, c, c);
   f_add(c, c, c);
   f_add(c, c, c);
-  f_sub(y3, y3, c);                // Y3 = E (D - X3) - 8 C
-  f_mul(z3, p.y, p.z);
-  f_add(z3, z3, z3);               // Z3 = 2 Y Z (0 if Y = 0)
-  r.x = x3;
-  r.y = y3;
-  r.z = z3;
+  f_sub(r.y, d, c);                // Y3 = E (D - X3) - 8 C
 }
 
 // r = p + (qx, qy), an affine point not at infinity (madd-2007-bl); r may
-// alias p
+// alias p.  Ordered so that at most six values are live (the G2 kernels'
+// register budget): Z3 as soon as H is known, 2 Y1 J before X3.
 template <class F>
 __device__ void jac_add_affine(Jac<F>& r, const Jac<F>& p, const F& qx,
                                const F& qy) {
@@ -224,13 +235,13 @@ __device__ void jac_add_affine(Jac<F>& r, const Jac<F>& p, const F& qx,
     f_one(r.z);
     return;
   }
-  F z1z1, u2, s2, h, hh, i, j, rr, v, t, x3, y3, z3;
-  f_mul(z1z1, p.z, p.z);
-  f_mul(u2, qx, z1z1);
-  f_mul(s2, qy, p.z);
-  f_mul(s2, s2, z1z1);
-  f_sub(h, u2, p.x);               // H = U2 - X1
-  f_sub(rr, s2, p.y);              // S2 - Y1
+  F z1z1, h, rr, t;
+  f_sqr(z1z1, p.z);
+  f_mul(h, qx, z1z1);
+  f_sub(h, h, p.x);                // H = U2 - X1, U2 = X2 Z1Z1
+  f_mul(rr, qy, p.z);
+  f_mul(rr, rr, z1z1);
+  f_sub(rr, rr, p.y);              // S2 - Y1, S2 = Y2 Z1 Z1Z1
   if (f_is_zero(h)) {
     if (f_is_zero(rr)) {
       jac_double(r, p);            // P = Q
@@ -239,28 +250,25 @@ __device__ void jac_add_affine(Jac<F>& r, const Jac<F>& p, const F& qx,
     }
     return;
   }
-  f_mul(hh, h, h);
-  f_add(i, hh, hh);
-  f_add(i, i, i);                  // I = 4 HH
-  f_mul(j, h, i);
+  f_add(t, p.z, h);
+  f_sqr(t, t);
+  f_sub(t, t, z1z1);
+  f_sqr(z1z1, h);                  // HH
+  f_sub(r.z, t, z1z1);             // Z3 = (Z1 + H)^2 - Z1Z1 - HH
+  f_add(z1z1, z1z1, z1z1);
+  f_add(z1z1, z1z1, z1z1);         // I = 4 HH
+  f_mul(h, h, z1z1);               // J = H I
+  f_mul(t, p.x, z1z1);             // V = X1 I
+  f_mul(z1z1, p.y, h);
+  f_add(z1z1, z1z1, z1z1);         // 2 Y1 J
   f_add(rr, rr, rr);               // r = 2 (S2 - Y1)
-  f_mul(v, p.x, i);
-  f_mul(x3, rr, rr);
-  f_sub(x3, x3, j);
-  f_sub(x3, x3, v);
-  f_sub(x3, x3, v);                // X3 = r^2 - J - 2 V
-  f_sub(t, v, x3);
-  f_mul(y3, rr, t);
-  f_mul(t, p.y, j);
-  f_add(t, t, t);
-  f_sub(y3, y3, t);                // Y3 = r (V - X3) - 2 Y1 J
-  f_add(z3, p.z, h);
-  f_mul(z3, z3, z3);
-  f_sub(z3, z3, z1z1);
-  f_sub(z3, z3, hh);               // Z3 = (Z1 + H)^2 - Z1Z1 - HH
-  r.x = x3;
-  r.y = y3;
-  r.z = z3;
+  f_sqr(r.x, rr);
+  f_sub(r.x, r.x, h);
+  f_sub(r.x, r.x, t);
+  f_sub(r.x, r.x, t);              // X3 = r^2 - J - 2 V
+  f_sub(t, t, r.x);
+  f_mul(t, rr, t);
+  f_sub(r.y, t, z1z1);             // Y3 = r (V - X3) - 2 Y1 J
 }
 
 // r = p + q (add-2007-bl); r may alias p or q
@@ -275,8 +283,8 @@ __device__ void jac_add(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
     return;
   }
   F z1z1, z2z2, u1, u2, s1, s2, h, i, j, rr, v, t, x3, y3, z3;
-  f_mul(z1z1, p.z, p.z);
-  f_mul(z2z2, q.z, q.z);
+  f_sqr(z1z1, p.z);
+  f_sqr(z2z2, q.z);
   f_mul(u1, p.x, z2z2);
   f_mul(u2, q.x, z1z1);
   f_mul(s1, p.y, q.z);
@@ -294,11 +302,11 @@ __device__ void jac_add(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
     return;
   }
   f_add(i, h, h);
-  f_mul(i, i, i);                  // I = (2 H)^2
+  f_sqr(i, i);                     // I = (2 H)^2
   f_mul(j, h, i);
   f_add(rr, rr, rr);               // r = 2 (S2 - S1)
   f_mul(v, u1, i);
-  f_mul(x3, rr, rr);
+  f_sqr(x3, rr);
   f_sub(x3, x3, j);
   f_sub(x3, x3, v);
   f_sub(x3, x3, v);                // X3 = r^2 - J - 2 V
@@ -308,7 +316,7 @@ __device__ void jac_add(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
   f_add(t, t, t);
   f_sub(y3, y3, t);                // Y3 = r (V - X3) - 2 S1 J
   f_add(z3, p.z, q.z);
-  f_mul(z3, z3, z3);
+  f_sqr(z3, z3);
   f_sub(z3, z3, z1z1);
   f_sub(z3, z3, z2z2);
   f_mul(z3, z3, h);                // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H

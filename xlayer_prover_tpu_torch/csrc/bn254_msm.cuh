@@ -7,9 +7,10 @@
 //
 // Replaces: the JAX package's host library xlayer_prover_tpu/native/
 // msm.cpp (pippenger :251 via msm_g1 :288 and msm_g2 :318; fixed_base :378
-// via fixed_base_g1 :481 and fixed_base_g2 :495, normalised to affine at
-// :414 and :457), which serves its Groth16 setup and prover.  There is no
-// TPU kernel of these functions: the JAX package runs them on the host.
+// via fixed_base_g1 :481 and fixed_base_g2 :495, normalised to affine by
+// g1_normalize :414 and g2_normalize :457), which serves its Groth16 setup
+// and prover.  There is no TPU kernel of these functions: the JAX package
+// runs them on the host.
 //
 // What bounds them on the card: the 32-bit multiplies of the Montgomery
 // products (264 a product, 7 M + 4 S a mixed addition, 11 M + 5 S a full
@@ -34,19 +35,14 @@
 //  6. msm_combine: one thread, acc = 2^c acc + window_w from the top
 //     window down; the Jacobian result as canonical words ((0, 1, 0) at
 //     infinity).
-// Fixed base: one thread a scalar walks the host-built table of 2^j G
-// (j < 254, affine, Montgomery form) with a mixed addition for every set
-// bit, then normalises to affine with a Fermat inverse of Z; scalar 0
-// gives zero words.
-// Signed digits, batch-affine bucket sums and a windowed fixed-base table
-// are for a later version.
+// Fixed base (bn254_fixed_base_g1 / _g2): see the note above fixed_base.
+// Signed digits and batch-affine bucket sums are for a later version.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "bn254_curve.cuh"
 
-#define SCALAR_BITS 254
 #define MSM_THREADS 64
 
 static inline unsigned blocks_for(int64_t n) {
@@ -211,46 +207,133 @@ static int msm_launch(const void* points, int64_t n, const int32_t* point,
   return (int)cudaGetLastError();
 }
 
+// -- fixed base -------------------------------------------------------------
+//
+// k_i G for a batch of scalars, affine words out (zeros for k_i = 0).
+// Replaces native/msm.cpp fixed_base (:378, 8-bit windows over a table of
+// 32 x 255 points) and its normalisations to affine, g1_normalize (:414,
+// one inversion for the batch) and g2_normalize (:457, one a point).
+//
+// What bounds it: the 32-bit multiplies of the Montgomery products on the
+// IMAD pipe.  A scalar reads 32 bytes and ~32 table entries (~2 KB of
+// G1's 522 KB or G2's 1.04 MB table, which stay in the 50 MB L2) against
+// ~32 mixed additions of ~2,700 (G1) or ~7,700 (G2) multiplies, so no
+// staging of the table in shared memory pays.
+//
+// What the design does about it:
+//  * 8-bit windows: the host builds entry (w, d) = d 2^(8w) G (w < 32,
+//    1 <= d <= 255; affine, Montgomery form; ops/bn254_msm.py
+//    _window_table), so a scalar costs one mixed addition a nonzero byte
+//    (<= 32) instead of one a set bit (~127).  The first nonzero byte sets
+//    the accumulator (jac_add_affine's infinity branch); the H = 0
+//    branches stay, so any 256-bit input is exact.
+//  * One Fermat inverse a block: Montgomery's trick over the block's Z in
+//    shared memory, a product tree up (THREADS - 1 products), one f_inv
+//    of the root by thread 0, and back down (two products a node), so a
+//    point costs ~3 products and f_inv / THREADS instead of a whole f_inv
+//    (~360 products).  A lane at infinity, or past n, enters as 1.
+//  * The register file: the curve formulas keep few values live
+//    (bn254_curve.cuh; an Fq2 square is two Fq products) and
+//    __launch_bounds__ caps the registers.  G1 takes 640 threads a block
+//    (one block, 20 warps an SM: the inverse, ~360 serial products by
+//    one thread, is shared by more scalars); G2 128 threads and three
+//    blocks an SM (12 warps, within 168 registers, which ptxas meets
+//    without spills at -O1: kernels.py LIB_FLAGS).
+// ops/bn254_msm.py _fixed_base_plain is the same function step for step.
+
+#define FB_WINDOWS 32              // 8-bit windows (32 x 8 >= 254 bits)
+#define FB_DIGITS 255              // table entries a window, d = 1..255
+
+// the fixed-base kernel's block width (one scalar a thread, one inverse a
+// block) and the blocks an SM must hold
+template <class F> struct FixedBaseShape;
+template <> struct FixedBaseShape<Fq> {
+  static constexpr int THREADS = 640, MIN_BLOCKS = 1;
+};
+template <> struct FixedBaseShape<Fq2> {
+  static constexpr int THREADS = 128, MIN_BLOCKS = 3;
+};
+
+// the highest power of two in x >= 1
+__host__ __device__ constexpr int high_bit(int x) {
+  return x & (x - 1) ? high_bit(x & (x - 1)) : x;
+}
+
 template <class F>
-__global__ void fixed_base(const uint32_t* __restrict__ table,
-                           const uint32_t* __restrict__ scalars,
-                           uint32_t* __restrict__ out, int64_t n) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+__global__ void __launch_bounds__(FixedBaseShape<F>::THREADS,
+                                  FixedBaseShape<F>::MIN_BLOCKS)
+fixed_base(const uint32_t* __restrict__ table,
+           const uint32_t* __restrict__ scalars, uint32_t* __restrict__ out,
+           int64_t n) {
+  constexpr int T = FixedBaseShape<F>::THREADS;
   const int fw = FieldWords<F>::N;
-  uint32_t k[8];
-#pragma unroll
-  for (int w = 0; w < 8; w++) k[w] = scalars[i * 8 + w];
+  __shared__ F tree[2 * T];        // node k's children 2k, 2k + 1; leaves T..
+  const int t = threadIdx.x;
+  const int64_t i = (int64_t)blockIdx.x * T + t;
   Jac<F> acc;
   jac_set_inf(acc);
-  for (int j = 0; j < SCALAR_BITS; j++) {
-    if ((k[j >> 5] >> (j & 31)) & 1) {
+  if (i < n) {
+    uint32_t word = 0;
+    for (int w = 0; w < FB_WINDOWS; w++) {
+      if ((w & 3) == 0) word = scalars[i * 8 + (w >> 2)];
+      const uint32_t d = (word >> (8 * (w & 3))) & 0xFF;
+      if (d == 0) continue;
+      const uint32_t* e =
+          table + ((int64_t)w * FB_DIGITS + d - 1) * 2 * fw;
       F x, y;
-      f_load_raw(x, table + (int64_t)j * 2 * fw);
-      f_load_raw(y, table + (int64_t)j * 2 * fw + fw);
+      f_load_raw(x, e);
+      f_load_raw(y, e + fw);
       jac_add_affine(acc, acc, x, y);
     }
   }
+  // Montgomery's trick: tree[k] = the product of its leaves, then
+  // tree[k] = its inverse from the root down.  Node k < T has children
+  // 2k and 2k + 1, so every T works; a round takes the nodes in [s, 2s).
+  const bool inf = jac_is_inf(acc);
+  if (inf) {
+    f_one(tree[T + t]);
+  } else {
+    tree[T + t] = acc.z;
+  }
+  constexpr int TOP = high_bit(T - 1);        // the tree's first round
+  for (int s = TOP; s > 0; s >>= 1) {
+    __syncthreads();
+    const int k = s + t;
+    if (t < s && k < T) f_mul(tree[k], tree[2 * k], tree[2 * k + 1]);
+  }
+  __syncthreads();
+  if (t == 0) f_inv(tree[1], tree[1]);
+  for (int s = 1; s <= TOP; s <<= 1) {
+    __syncthreads();
+    const int k = s + t;
+    if (t < s && k < T) {
+      const F left = tree[2 * k];
+      f_mul(tree[2 * k], tree[k], tree[2 * k + 1]);
+      f_mul(tree[2 * k + 1], tree[k], left);
+    }
+  }
+  __syncthreads();
+  if (i >= n) return;
   uint32_t* o = out + i * 2 * fw;
-  if (jac_is_inf(acc)) {
+  if (inf) {
     for (int w = 0; w < 2 * fw; w++) o[w] = 0;
     return;
   }
-  F zi, zi2, t;
-  f_inv(zi, acc.z);
+  F zi = tree[T + t], zi2, v;
   f_mul(zi2, zi, zi);
-  f_mul(t, acc.x, zi2);
-  f_store(o, t);
+  f_mul(v, acc.x, zi2);
+  f_store(o, v);
   f_mul(zi2, zi2, zi);
-  f_mul(t, acc.y, zi2);
-  f_store(o + fw, t);
+  f_mul(v, acc.y, zi2);
+  f_store(o + fw, v);
 }
 
 template <class F>
 static int fixed_base_launch(const void* table, const void* scalars,
                              void* out, int64_t n, void* stream) {
-  fixed_base<F><<<blocks_for(n), MSM_THREADS, 0, (cudaStream_t)stream>>>(
+  constexpr int T = FixedBaseShape<F>::THREADS;
+  fixed_base<F><<<(unsigned)((n + T - 1) / T), T, 0,
+                  (cudaStream_t)stream>>>(
       (const uint32_t*)table, (const uint32_t*)scalars, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }
-

@@ -26,10 +26,14 @@ are (n, 4) words of canonical Fr values (below r).
     all points at once, then a pairwise sum.
   * ``fixed_base_g1(gen, scalars)`` / ``fixed_base_g2``: k_i gen for a
     batch of scalars, affine words, (n, 8) / (n, 16), zero words for
-    k_i = 0.  ``gen`` is a host affine point (Python ints).  Both walk a
-    table of 2^j gen (j < 254, built on the host): the kernels
-    ``bn254_fixed_base_g1`` / ``bn254_fixed_base_g2`` one thread a scalar,
-    the plain version ``_fixed_base_plain`` all scalars at once.
+    k_i = 0.  ``gen`` is a host affine point (Python ints).  Both walk
+    the 8-bit windows of a scalar over a table of d 2^(8w) gen (32 x 255
+    points, built on the host once a generator and device) with one
+    mixed addition a nonzero byte, then normalise to affine with one
+    inversion a group of lanes (Montgomery's trick): the kernels
+    ``bn254_fixed_base_g1`` / ``bn254_fixed_base_g2`` one thread a scalar
+    and one inversion a block, the plain version ``_fixed_base_plain``
+    all scalars at once in groups of the kernel's block width.
 
 The plain versions compute on ``ops/bn254_mont.py`` (Fq in plain
 Montgomery limbs, Fq2 as (..., 2, L) pairs); they serve the CPU tests and
@@ -40,6 +44,7 @@ from __future__ import annotations
 
 import functools
 import math
+import random
 
 import numpy as np
 import torch
@@ -50,6 +55,8 @@ from .bn254_mont import FQ, MONT, L, conv, from_words, to_words
 
 P, R = bn254.P, bn254.R
 SCALAR_BITS = 254           # r < 2^254
+FB_WINDOWS = 32             # the fixed-base table's 8-bit windows
+FB_DIGITS = 255             # its entries a window, d = 1..255
 
 PLAIN_CHUNK = 1 << 14       # rows of the plain versions at a time
 # the kernels' launch shapes (csrc/bn254_msm.cuh)
@@ -113,6 +120,8 @@ class _Fq:
     """Fq on (..., L) limbs (bn254_mont.FQ) with a point's helpers."""
     dims = 1
     words = 4
+    block = 640             # the fixed-base kernel's block width
+                            # (FixedBaseShape, csrc/bn254_msm.cuh)
     mul, add, sub, small = FQ.mul, FQ.add, FQ.sub, FQ.small
     reduce, is_zero = FQ.reduce, FQ.is_zero
     to_mont = FQ.to_mont                # (..., 4) -> (..., L)
@@ -135,6 +144,7 @@ class _Fq2(_Fq):
     """Fq2 = Fq[u]/(u^2 + 1) on (..., 2, L) limbs: (c0, c1) = c0 + c1 u."""
     dims = 2
     words = 8
+    block = 128
 
     def mul(self, a, b):
         """(a0 b0 - a1 b1, a0 b1 + a1 b0): the four products' columns are
@@ -171,6 +181,8 @@ class _Fq2(_Fq):
 
 
 FQ1_OPS, FQ2_OPS = _Fq(), _Fq2()
+# a block of either fixed-base kernel's cases (fixed_base_cases)
+FB_CASE_BLOCK = math.lcm(FQ1_OPS.block, FQ2_OPS.block)
 
 
 def _where(F, mask, a, b):
@@ -228,7 +240,7 @@ def _add_parts(F, p1, p2):
 
 def _add_distinct(F, p1, p2):
     """P1 + P2 where P1 != +-P2 unless one of them is at infinity: the
-    steps of a double-and-add or a table walk with a scalar below r."""
+    steps of a double-and-add with a scalar below r."""
     x3, y3, z3, _h, _rr = _add_parts(F, p1, p2)
     out = (x3, y3, z3, torch.zeros_like(p1[3]))
     out = _pick(F, p2[3], p1, out)
@@ -323,15 +335,113 @@ def _powers_of_two(gen) -> tuple:
     return tuple(out)
 
 
+def _host_batch_inv(vals, mul, inv) -> list:
+    """The inverses of nonzero host field elements with one inversion
+    (Montgomery's trick)."""
+    pre = [vals[0]]
+    for v in vals[1:]:
+        pre.append(mul(pre[-1], v))
+    acc = inv(pre[-1])
+    out = [None] * len(vals)
+    for k in range(len(vals) - 1, 0, -1):
+        out[k] = mul(acc, pre[k - 1])
+        acc = mul(acc, vals[k])
+    out[0] = acc
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _window_table(gen) -> tuple:
+    """The fixed-base table: entry w * FB_DIGITS + d - 1 is d 2^(8w) gen
+    (w < FB_WINDOWS, 1 <= d <= FB_DIGITS), affine, host Python ints (G1
+    or G2).  Each window adds its base 2^(8w) gen to its last entry (the
+    tangent for d = 2, a chord after), the 32 windows' slope denominators
+    inverted together at each step."""
+    if isinstance(gen[0], tuple):
+        tw = bn254_tower
+        mul, sub, inv, scale = tw.fq2_mul, tw.fq2_sub, tw.fq2_inv, \
+            tw.fq2_mul_scalar
+    else:
+        def mul(a, b):
+            return a * b % P
+
+        def sub(a, b):
+            return (a - b) % P
+        inv, scale = bn254.fq_inv, mul
+    bases = [_powers_of_two(gen)[8 * w] for w in range(FB_WINDOWS)]
+    rows = [[b] for b in bases]
+    for d in range(2, FB_DIGITS + 1):
+        last = [row[-1] for row in rows]
+        if d == 2:
+            num = [scale(mul(x, x), 3) for x, _ in last]
+            den = [scale(y, 2) for _, y in last]
+        else:
+            num = [sub(b[1], q[1]) for q, b in zip(last, bases)]
+            den = [sub(b[0], q[0]) for q, b in zip(last, bases)]
+        for row, q, b, nu, di in zip(rows, last, bases, num,
+                                     _host_batch_inv(den, mul, inv)):
+            lam = mul(nu, di)
+            x = sub(sub(mul(lam, lam), q[0]), b[0])
+            row.append((x, sub(mul(lam, sub(q[0], x)), q[1])))
+    return tuple(pt for row in rows for pt in row)
+
+
 def _table_words(gen) -> np.ndarray:
-    pts = _powers_of_two(gen)
+    pts = _window_table(gen)
     return g2_words(pts) if isinstance(gen[0], tuple) else g1_words(pts)
 
 
+def fixed_base_cases(n: int, seed: int, block: int = 0) -> list:
+    """n scalars (Python ints) that hold every edge of the fixed-base
+    kernels, for the tests and ``chip_smoke.py``: 0, 1, 255, 256, r - 1,
+    r - 2, 2^253; every byte 0xFF below r (2^248 - 1 and
+    0x2F 2^248 + 2^248 - 1); d 2^(8w) for d = 1 and 255 at every window
+    w; r and 2 (0x31 2^248) - r, whose last additions meet -P and P (the
+    H = 0 branches); then seeded scalars below r, with lanes
+    [2 block, 3 block) zero (whole blocks at infinity) and lanes
+    [3 block, 4 block) zero but lane 3 block + 77 (a block with one live
+    lane).  `block` defaults to FB_CASE_BLOCK; n >= 4 block."""
+    block = block or FB_CASE_BLOCK
+    assert n >= 4 * block
+    top = 1 << 248
+    ks = [0, 1, 255, 256, R - 1, R - 2, 1 << 253, top - 1,
+          0x2F * top + top - 1, R, 2 * 0x31 * top - R]
+    ks += [d << (8 * w) for w in range(FB_WINDOWS) for d in (1, 255)]
+    rng = random.Random(seed)
+    ks += [rng.randrange(R) for _ in range(n - len(ks))]
+    ks[2 * block:4 * block] = [0] * (2 * block)
+    ks[3 * block + 77] = rng.randrange(1, R)
+    return ks
+
+
+def _batch_inverse(F, z):
+    """z^-1 of nonzero (n, ...) values by Montgomery's trick over groups of
+    F.block lanes, as the fixed-base kernel does over a block: a product
+    tree up, one inversion a group, and back down (two products a node).
+    Ones pad the last group and each group to a power of two."""
+    n, tail = z.shape[0], z.shape[1:]
+    groups = -(-n // F.block)
+    level = F.one((groups, 1 << (F.block - 1).bit_length()), z.device)
+    level[:, :F.block] = torch.cat(
+        [z, F.one((groups * F.block - n,), z.device)]).reshape(
+            groups, F.block, *tail)
+    levels = []
+    while level.shape[1] > 1:
+        levels.append(level)
+        level = F.mul(level[:, 0::2], level[:, 1::2])
+    inv = F.inv(level)
+    for level in reversed(levels):
+        inv = torch.stack([F.mul(inv, level[:, 1::2]),
+                           F.mul(inv, level[:, 0::2])], dim=2).reshape(
+                               level.shape)
+    return inv[:, :F.block].reshape(-1, *tail)[:n]
+
+
 def _fixed_base_plain(F, gen, scalars):
-    """Plain PyTorch version of the fixed-base kernels: the same walk of
-    the table of 2^j gen over all scalars of a chunk at once, then the
-    affine normalisation; (n, 2 * F.words) words, zeros for k = 0."""
+    """Plain PyTorch version of the fixed-base kernels, step for step: the
+    walk of the 8-bit table over all scalars of a chunk at once, then the
+    affine normalisation with one inversion a group of the kernel's block
+    width; (n, 2 * F.words) words, zeros for k = 0."""
     if scalars.shape[0] <= PLAIN_CHUNK:
         return _fixed_base_chunk(F, gen, scalars)
     return torch.cat([_fixed_base_chunk(F, gen, scalars[i:i + PLAIN_CHUNK])
@@ -341,15 +451,16 @@ def _fixed_base_plain(F, gen, scalars):
 def _fixed_base_chunk(F, gen, scalars):
     n = scalars.shape[0]
     dev = scalars.device
-    table = _affine_in(F, torch.from_numpy(_table_words(gen)).to(dev))
+    tx, ty, tz, _ = _affine_in(F, torch.from_numpy(_table_words(gen)).to(dev))
+    finite = torch.zeros(n, dtype=torch.bool, device=dev)
     acc = _infinity(F, n, dev)
-    bits = _bits(scalars, SCALAR_BITS)
-    for j in range(SCALAR_BITS):
-        tj = tuple(t[j].expand_as(a) if a.dim() > 1 else t[j].expand(n)
-                   for t, a in zip(table, acc))
-        acc = _pick(F, bits[j], _add_distinct(F, acc, tj), acc)
+    for w in range(FB_WINDOWS):
+        d = (scalars[:, w // 8] >> (8 * (w % 8))) & 0xFF
+        idx = w * FB_DIGITS + (d - 1).clamp(min=0)
+        entry = (tx[idx], ty[idx], tz[idx], finite)
+        acc = _pick(F, d != 0, _add(F, acc, entry), acc)
     x, y, z, inf = acc
-    zi = F.inv(z)
+    zi = _batch_inverse(F, _where(F, inf, F.one((n,), dev), z))
     zi2 = F.mul(zi, zi)
     out = torch.cat([F.from_mont(F.mul(x, zi2)),
                      F.from_mont(F.mul(y, F.mul(zi2, zi)))], dim=-1)
@@ -476,9 +587,9 @@ def msm_g2(points: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=8)
 def _device_table(gen, device) -> torch.Tensor:
-    """The kernels' table: 2^j gen in Montgomery form (v 2^256 mod p),
-    affine words."""
-    pts = _powers_of_two(gen)
+    """The kernels' table (``_window_table``) in Montgomery form
+    (v 2^256 mod p), affine words."""
+    pts = _window_table(gen)
     flat = [v for pt in pts for v in
             ((*pt[0], *pt[1]) if isinstance(gen[0], tuple) else pt)]
     return torch.from_numpy(to_words(v * MONT % P for v in flat)).to(device)

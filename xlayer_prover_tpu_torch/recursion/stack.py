@@ -139,7 +139,8 @@ class RecursionStack:
         is built), its proof's rounds, the R1CS build (``r1cs_s``), and
         then its check (``check_s``) or the Groth16 setup
         (``g16_setup_s``, when it runs, with its host part
-        ``g16_wire_polys_s``), proof (``g16_prove_s``, with h's
+        ``g16_wire_polys_s`` and the fixed-base batches
+        ``g16_fixed_base_g1_s`` / ``_g2_s``), proof (``g16_prove_s``, with h's
         ``g16_h_s``) and verification (``g16_verify_s``)."""
         if wrap not in ("stark", "groth16"):
             raise ValueError(f"unknown wrap {wrap!r}")

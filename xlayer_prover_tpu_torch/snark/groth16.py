@@ -155,11 +155,24 @@ def _wire_polys_at_tau(r1cs: R1CS, tau: int, domain_bits: int):
     return a_t, b_t, c_t
 
 
+def _timed_fixed_base(fn, gen, scalars, timings: dict, key: str):
+    """fn(gen, scalars), its host seconds (after a synchronise on CUDA) in
+    timings[key]."""
+    t0 = time.perf_counter()
+    out = fn(gen, scalars)
+    if scalars.device.type == "cuda":
+        torch.cuda.synchronize(scalars.device)
+    timings[key] = time.perf_counter() - t0
+    return out
+
+
 def setup(r1cs: R1CS, rng: Optional[object] = None, device=None,
           timings: Optional[dict] = None):
     """Test-environment trusted setup (snarkjs zkey equivalent) with its
     queries on `device` (None: the card).  `timings` receives
-    ``g16_wire_polys_s``, the host evaluation at tau."""
+    ``g16_wire_polys_s``, the host evaluation at tau, and
+    ``g16_fixed_base_g1_s`` / ``g16_fixed_base_g2_s``, the two fixed-base
+    batches (their tables built at the first call for a device)."""
     dev = devices.resolve(device)
     timings = {} if timings is None else timings
     rand = (lambda: secrets.randbelow(R - 1) + 1) if rng is None \
@@ -183,13 +196,17 @@ def setup(r1cs: R1CS, rng: Optional[object] = None, device=None,
         h_scalars.append(cur)
         cur = cur * tau % R
     # every G1 query in one batch: a | b1 | ic | c (private wires) | h
-    g1 = bn254_msm.fixed_base_g1(G1_GEN, _scalars(
+    g1_scalars = _scalars(
         a_t + b_t + [v * ginv % R for v in l_scalars[:n_ic]]
-        + [v * dinv % R for v in l_scalars[n_ic:]] + h_scalars, dev))
+        + [v * dinv % R for v in l_scalars[n_ic:]] + h_scalars, dev)
+    g1 = _timed_fixed_base(bn254_msm.fixed_base_g1, G1_GEN, g1_scalars,
+                           timings, "g16_fixed_base_g1_s")
     a_query, b1_query, ic, c_pts, h_query = torch.split(
         g1, [n_wires, n_wires, n_ic, n_wires - n_ic, m - 1])
     c_query = torch.cat([torch.zeros_like(ic), c_pts])
-    b2_query = bn254_msm.fixed_base_g2(G2_GEN, _scalars(b_t, dev))
+    b2_query = _timed_fixed_base(bn254_msm.fixed_base_g2, G2_GEN,
+                                 _scalars(b_t, dev), timings,
+                                 "g16_fixed_base_g2_s")
 
     pk = ProvingKey(n_public=r1cs.n_public, n_wires=n_wires,
                     domain_bits=domain_bits,
