@@ -91,10 +91,13 @@ bytes of 0xFF, d 2^(8w) at every window, r and a scalar whose last
 addition doubles, blocks all at infinity, a block with one live lane, a
 ragged last block; their tables' build timed on the host), then
 bn254_msm_g1 / _g2 on 2^14 points made by them (points at infinity,
-zero scalars, r - 1, a repeated point, a point beside its negation, a
-bucket of a quarter of the points; 10-bit windows, several buckets a
-running-sum segment) and on the 2^20 points they are timed on (16-bit
-windows, as on the main path) with all but 8,208 scalars set to 0,
+zero scalars, r - 1, a repeated point, a point beside its negation, one
+point under the signed digits +5 and -5 in a window, digits of 2^(c - 1)
+and -(2^(c - 1) - 1) in every window, a bucket of a quarter of the
+points across 64 chunks; 10-bit windows) against the plain version and
+the step-by-step model ``_msm_model``, and on the 2^20 points they are
+timed on (16-bit windows, as on the main path) with all but 8,212
+scalars set to 0, each MSM's stages timed at 2^20 with CUDA events,
 fr_ntt at 2^0, 2^1, 2^5, 2^12, on the 2^21 values it is timed on and as
 a 2^20 inverse, fr_mul_sub at 2^21 with edge values; each timed at the
 devnet root's shapes (2^20 scalars and points, 2^21 values).
@@ -265,21 +268,22 @@ def bn254_leaf_work(m: int, width: int) -> dict:
 
 
 def msm_work(group: str, points, scalars) -> dict:
-    """Bytes and 32-bit multiplies of an MSM over these inputs: Pippenger
-    at the c minimising ceil(254 / c) (n + 2^(c + 1)) for the n pairs of a
-    finite point and a nonzero scalar, a mixed addition (7 M + 4 S) for
-    each nonzero c-bit digit of those pairs and two full additions
-    (11 M + 5 S) a bucket a window for the running sums; each point and
-    scalar read once."""
+    """Bytes and 32-bit multiplies of an MSM over these inputs, whatever
+    computes it: Pippenger with signed c-bit digits (negating a point is
+    free, so 2^(c - 1) buckets a window) over the pairs of a finite point
+    and a nonzero scalar, a mixed addition (7 M + 4 S) for each nonzero
+    digit of those pairs and two full additions (11 M + 5 S) a bucket for
+    the running sums, at the c (2 .. 20) that makes it least; each point
+    and scalar read once."""
     from xlayer_prover_tpu_torch.ops import bn254_msm
     live = (points != 0).any(-1) & (scalars != 0).any(-1)
-    n_live = int(live.sum())
-    c = bn254_msm.window_bits(n_live)
-    windows = -(-bn254_msm.SCALAR_BITS // c)
-    digits = int((bn254_msm._digits(scalars[live], c, windows) != 0).sum())
     ops = CURVE_OPS[group]
+    least = min(
+        int((bn254_msm.signed_digits(scalars[live], c) != 0).sum())
+        * ops["mixed"] + bn254_msm.n_windows(c) * (2 << (c - 1))
+        * ops["full"] for c in range(2, bn254_msm.MAX_WINDOW_BITS + 1))
     return {"bytes": points.shape[0] * (ops["point_bytes"] + 32),
-            "ops": digits * ops["mixed"] + windows * (2 << c) * ops["full"]}
+            "ops": least}
 
 
 def fixed_base_work(group: str, scalars) -> dict:
@@ -550,13 +554,17 @@ def _curve_inputs(torch, rng, gen_group: str, n: int):
     kernel (held against its plain version before), and n scalars, with
     every edge of the MSM kernels among the first rows: points at
     infinity, zero scalars, r - 1, one point repeated under one scalar, a
-    point beside its negation, and scalar 1 on a quarter of the rows (the
-    heavy bucket of Groth16's witnesses)."""
+    point beside its negation, one point under the signed digits +5 and
+    -5 in window 0, scalars whose every window holds the digit 2^(c - 1)
+    or -(2^(c - 1) - 1) (c = window_bits(n)), and scalar 1 on a quarter of
+    the rows (the heavy bucket of Groth16's witnesses, which spans many
+    chunks of the bucket sums)."""
     from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
     from xlayer_prover_tpu_torch.ops import bn254_mont, bn254_msm
 
     cuda = torch.device("cuda")
     r = bn254.R
+    c = bn254_msm.window_bits(n)
     ks = [int(v) % r for v in rng.integers(1, 1 << 63, size=n)]
     gen = bn254.G1_GEN if gen_group == "g1" else bn254_tower.G2_GEN
     fixed = getattr(bn254_msm, f"fixed_base_{gen_group}")
@@ -575,6 +583,12 @@ def _curve_inputs(torch, rng, gen_group: str, n: int):
     pts[7, fw:] = torch.from_numpy(bn254_mont.to_words(neg)).reshape(-1).to(
         cuda)
     sc[7] = sc[6]
+    half, high = 1 << (c - 1), sc[17] >> (c + 2) << c
+    pts[18] = pts[17]
+    sc[17], sc[18] = high | 5, high | ((1 << c) - 5)
+    windows = range(0, bn254_msm.SCALAR_BITS - c, c)
+    sc[19] = sum(half << w for w in windows)
+    sc[20] = sum((half + 1) << w for w in windows)
     return pts, torch.from_numpy(bn254_mont.to_words(sc)).to(cuda)
 
 
@@ -640,11 +654,13 @@ def phase_g16_kernels(torch, rng):
         del big_sc, got, ref
         torch.cuda.empty_cache()
 
-    # -- MSM: edge inputs at 2^14 (c = 10: a running-sum segment spans
-    # four buckets) against the plain version; then the timed 2^20 inputs
+    # -- MSM: edge inputs at 2^14 (c = 10: 26 windows of 512 buckets, a
+    # bucket of a quarter of the points across 64 chunks) against the plain
+    # version and the step-by-step model; then the timed 2^20 inputs
     # (c = 16, the main path's layout) with every 128th scalar and the
     # edge rows kept and the rest set to 0, against the plain version over
-    # the kept rows (the others add nothing) -----------------------------
+    # the kept rows (the others add nothing); then each stage timed on the
+    # full 2^20 inputs -----------------------------------------------------
     for group, line, ops in (("g1", 288, bn254_msm.FQ1_OPS),
                              ("g2", 318, bn254_msm.FQ2_OPS)):
         fn = getattr(bn254_msm, f"msm_{group}")
@@ -653,19 +669,33 @@ def phase_g16_kernels(torch, rng):
         for n in (mid, big):
             pts, sc = _curve_inputs(torch, rng, group, n)
             idx = torch.arange(n, device=cuda)
-            keep = (idx % 128 == 0) | (idx < 17) | (n == mid)
+            keep = (idx % 128 == 0) | (idx < 21) | (n == mid)
             got = fn(pts, torch.where(keep[:, None], sc, 0))
             ref, ms = _timed(torch, lambda: bn254_msm._msm_plain(
                 ops, pts[keep], sc[keep]))
-            if n == mid:
-                plain_ms = ms
             a, b = _flat(affine(got)), _flat(affine(ref))
             err = max([err] + [abs(u - v) for u, v in zip(a, b)])
             _require(a == b and len(a) > 0, f"bn254_msm_{group} at {n} "
                      "points equals its plain version (affine)")
+            if n == mid:
+                plain_ms = ms
+                model = bn254_msm._msm_model(ops, pts, sc)
+                _require(_flat(affine(model)) == a, f"bn254_msm_{group} at "
+                         f"{n} points equals the step-by-step model")
+                print(f"bn254_msm_{group} at {n}: equal to _msm_plain and "
+                      f"_msm_model in affine; Jacobian bit-equal to the "
+                      f"model: {torch.equal(got, model)}", flush=True)
         _require(affine(fn(pts, torch.zeros_like(sc))) is None,
                  f"bn254_msm_{group} of zero scalars is infinity")
         ms = _cuda_ms(lambda: fn(pts, sc), 3)
+        stages = []
+        bn254_msm._msm(f"bn254_msm_{group}", ops, pts, sc, stages=stages)
+        torch.cuda.synchronize()
+        split = {}
+        for (_, a), (stage, b) in zip(stages, stages[1:]):
+            split[stage] = split.get(stage, 0.0) + a.elapsed_time(b)
+        print(f"bn254_msm_{group} at {big} points, ms by stage: "
+              + json.dumps(split), flush=True)
         rows.append({
             "name": f"bn254_msm_{group}", "route": "cuda",
             "source": src.format(group), "replaces": msm_cpp.format(line),
@@ -1272,6 +1302,9 @@ def phase_final(torch, stack, root):
           f"verification_key.json, proof.json and public.json byte-equal to "
           f"{os.path.relpath(G16_FIXTURE, REPO)}, accepted from the files "
           f"({files_verify_s:.3f} s), a changed public refused", flush=True)
+    print(f"final: Groth16's five MSMs {timings['g16_msm_s']:.4f} s "
+          f"(g16_msm_s: four over G1, one over G2, host clock after a "
+          f"synchronise)", flush=True)
     shapes = check_bn254_shapes(torch, g)
     print(device.smi("name,power.limit"), flush=True)
     report = {"n_bits": g.n_bits, "total_s": total_s, "timings_s": timings,

@@ -202,59 +202,23 @@ def _words(values, device):
     return torch.from_numpy(bn254_mont.to_words(values)).to(device)
 
 
-def _points(group, n, a, b):
-    """(a + i b) G for i < n, affine host points, one host addition each
-    (G1's or G2's generator)."""
-    from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
-    if group == "g1":
-        g = bn254.g1_from_affine(bn254.G1_GEN)
-        cur, step = bn254.g1_mul(g, a), bn254.g1_mul(g, b)
-        out = []
-        for _ in range(n):
-            out.append(bn254.g1_to_affine(cur))
-            cur = bn254.g1_add(cur, step)
-        return out
-    cur = bn254_tower.g2_mul(bn254_tower.G2_GEN, a)
-    step = bn254_tower.g2_mul(bn254_tower.G2_GEN, b)
-    out = []
-    for _ in range(n):
-        out.append(cur)
-        cur = bn254_tower.g2_add(cur, step)
-    return out
-
-
-def msm_case(group, n, seed):
-    """n points and scalars with every edge of the kernels: infinity, zero
-    scalars, r - 1, a point repeated under one digit, a point beside its
-    negation, and a bucket that holds half of the points (scalar 1, as
-    Groth16 witnesses have) -> (host points, scalars, point words)."""
-    import random
-
-    from xlayer_prover_tpu_torch.fields import bn254, bn254_tower
+def msm_case(group, n, seed, c=None):
+    """``bn254_msm.msm_cases`` (every edge of the MSM kernels for c-bit
+    signed windows) -> (host points, scalars, point words)."""
     from xlayer_prover_tpu_torch.ops import bn254_msm
-    rng = random.Random(seed)
-    r = bn254.R
-    pts = _points(group, n, rng.randrange(r), rng.randrange(r))
-    sc = [rng.randrange(r) for _ in range(n)]
-    neg = (bn254_tower.g2_neg if group == "g2" else lambda p: (
-        p[0], (bn254.P - p[1]) % bn254.P))
-    pts[3] = None
-    pts[5], sc[5] = pts[4], sc[4]
-    pts[7], sc[7] = neg(pts[6]), sc[6]
-    pts[8:16] = [pts[8]] * 8
-    sc[8:16] = [sc[8]] * 8
-    sc[0] = sc[1] = 0
-    sc[2] = r - 1
-    for i in range(32, n // 2):
-        sc[i] = 1
+    pts, sc = bn254_msm.msm_cases(group, n, seed, c)
     words = bn254_msm.g2_words(pts) if group == "g2" else \
         bn254_msm.g1_words(pts)
     return pts, sc, torch.from_numpy(words)
 
 
 @pytest.mark.parametrize("group,n", [("g1", 4096), ("g2", 1024),
+                                     ("g1", 4099), ("g2", 1027),
                                      ("g1", 1 << 14), ("g2", 1 << 14)])
 def test_bn254_msm_kernel_matches_plain(cuda_device, group, n):
+    """Every edge of msm_case, at 2^14 and at sizes whose entries end in a
+    ragged chunk: the kernels equal the plain version in affine, and at
+    2^14 the step-by-step model too."""
     from xlayer_prover_tpu_torch.ops import bn254_msm
     _pts, sc, words = msm_case(group, n, 20261017)
     x, s = words.to(cuda_device), _words(sc, cuda_device)
@@ -267,9 +231,68 @@ def test_bn254_msm_kernel_matches_plain(cuda_device, group, n):
     assert kernels.LAUNCHES[name] == before + 1
     assert got.device.type == "cuda"
     assert affine(got) == affine(bn254_msm._msm_plain(F, x, s))
+    if n == 1 << 14:
+        assert affine(got) == affine(bn254_msm._msm_model(F, x, s))
     assert affine(fn(x, torch.zeros_like(s))) is None
     assert affine(fn(x[:1], s[2:3])) == affine(
         bn254_msm._msm_plain(F, x[:1], s[2:3]))
+
+
+@pytest.mark.parametrize("group,n,c", [("g1", 1000, 2), ("g1", 1000, 3),
+                                       ("g1", 1000, 5), ("g1", 600, 16),
+                                       ("g2", 300, 2), ("g2", 300, 4),
+                                       ("g2", 200, 16)])
+def test_bn254_msm_kernel_window_widths(cuda_device, group, n, c):
+    """msm_case at a chosen window width (c = 2: 128 windows of two
+    buckets; c = 16: 2^15 buckets a window, mostly empty): the kernels
+    equal the plain version and the step-by-step model in affine."""
+    from xlayer_prover_tpu_torch.ops import bn254_msm
+    _pts, sc, words = msm_case(group, n, 20261020 + c, c)
+    x, s = words.to(cuda_device), _words(sc, cuda_device)
+    F = bn254_msm.FQ1_OPS if group == "g1" else bn254_msm.FQ2_OPS
+    affine = getattr(bn254_msm, f"to_affine_{group}")
+    got = affine(bn254_msm._msm(f"bn254_msm_{group}", F, x, s, c=c))
+    assert got == affine(bn254_msm._msm_plain(F, x, s))
+    assert got == affine(bn254_msm._msm_model(F, x, s, c))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bn254_msm_prepare_keys_match_plain(cuda_device, group):
+    """msm_prepare's keys (signed digits, MSM_NONE for zero digits and
+    points at infinity) equal msm_keys at every window width, and its
+    Montgomery table holds the points."""
+    from xlayer_prover_tpu_torch.ops import bn254_msm
+    _pts, sc, words = msm_case(group, 257, 20261021)
+    x, s = words.to(cuda_device), _words(sc, cuda_device)
+    name = f"bn254_msm_{group}"
+    lib = kernels.load(name)
+    for c in range(2, bn254_msm.MAX_WINDOW_BITS + 1):
+        w = bn254_msm.n_windows(c)
+        keys = torch.empty(w * 257, dtype=torch.int32, device=cuda_device)
+        mont = torch.empty_like(x)
+        kernels.check(getattr(lib, f"{name}_prepare")(
+            x.data_ptr(), s.data_ptr(), 257, c, w, mont.data_ptr(),
+            keys.data_ptr(), kernels.stream_ptr(cuda_device)), name)
+        assert torch.equal(keys, bn254_msm.msm_keys(x, s, c)), c
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_bn254_msm_kernel_waits_for_no_host(cuda_device, group):
+    """Between the upload of the scalars and the Jacobian result the MSM
+    path synchronises with the host nowhere: PyTorch's sync debug mode
+    raises on any synchronising op."""
+    from xlayer_prover_tpu_torch.ops import bn254_msm
+    _pts, sc, words = msm_case(group, 1024, 20261022)
+    x, s = words.to(cuda_device), _words(sc, cuda_device)
+    fn = getattr(bn254_msm, f"msm_{group}")
+    want = fn(x, s)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(x, s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("group", ["g1", "g2"])
@@ -289,7 +312,7 @@ def test_bn254_msm_kernel_at_main_path_windows(cuda_device, group):
     gen = bn254.G1_GEN if group == "g1" else bn254_tower.G2_GEN
     x = getattr(bn254_msm, f"fixed_base_{group}")(gen, _words(
         [rng.randrange(1, 1 << 64) for _ in range(n)], cuda_device))
-    _pts, sc, edge = msm_case(group, 64, 20261019)
+    _pts, sc, edge = msm_case(group, 64, 20261019, 16)
     x[:64] = edge.to(cuda_device)
     keep = torch.arange(n, device=cuda_device)
     keep = (keep % 128 == 0) | (keep < 64)

@@ -143,18 +143,18 @@ template <class F> struct FieldWords;
 template <> struct FieldWords<Fq> { static constexpr int N = 8; };
 template <> struct FieldWords<Fq2> { static constexpr int N = 16; };
 
-// raw Montgomery words in scratch memory
-template <class F>
+// raw Montgomery words in scratch memory, word k at w[k STRIDE]
+template <class F, int STRIDE = 1>
 __device__ __forceinline__ void f_load_raw(F& r, const uint32_t* w) {
   uint32_t* d = reinterpret_cast<uint32_t*>(&r);
 #pragma unroll
-  for (int k = 0; k < FieldWords<F>::N; k++) d[k] = w[k];
+  for (int k = 0; k < FieldWords<F>::N; k++) d[k] = w[k * STRIDE];
 }
-template <class F>
+template <class F, int STRIDE = 1>
 __device__ __forceinline__ void f_store_raw(uint32_t* w, const F& a) {
   const uint32_t* s = reinterpret_cast<const uint32_t*>(&a);
 #pragma unroll
-  for (int k = 0; k < FieldWords<F>::N; k++) w[k] = s[k];
+  for (int k = 0; k < FieldWords<F>::N; k++) w[k * STRIDE] = s[k];
 }
 
 // -- points ------------------------------------------------------------------
@@ -176,25 +176,25 @@ __device__ __forceinline__ bool jac_is_inf(const Jac<F>& p) {
   return f_is_zero(p.z);
 }
 
-template <class F>
+template <class F, int STRIDE = 1>
 __device__ __forceinline__ void jac_load_raw(Jac<F>& p, const uint32_t* w) {
-  f_load_raw(p.x, w);
-  f_load_raw(p.y, w + FieldWords<F>::N);
-  f_load_raw(p.z, w + 2 * FieldWords<F>::N);
+  f_load_raw<F, STRIDE>(p.x, w);
+  f_load_raw<F, STRIDE>(p.y, w + FieldWords<F>::N * STRIDE);
+  f_load_raw<F, STRIDE>(p.z, w + 2 * FieldWords<F>::N * STRIDE);
 }
 
-template <class F>
+template <class F, int STRIDE = 1>
 __device__ __forceinline__ void jac_store_raw(uint32_t* w, const Jac<F>& p) {
-  f_store_raw(w, p.x);
-  f_store_raw(w + FieldWords<F>::N, p.y);
-  f_store_raw(w + 2 * FieldWords<F>::N, p.z);
+  f_store_raw<F, STRIDE>(w, p.x);
+  f_store_raw<F, STRIDE>(w + FieldWords<F>::N * STRIDE, p.y);
+  f_store_raw<F, STRIDE>(w + 2 * FieldWords<F>::N * STRIDE, p.z);
 }
 
 // r = 2 p (dbl-2009-l); r may alias p.  Each coordinate of p is read for
 // the last time before r's is written, and at most four values besides p
 // are live (the G2 kernels' register budget).
 template <class F>
-__device__ void jac_double(Jac<F>& r, const Jac<F>& p) {
+__device__ __forceinline__ void jac_double(Jac<F>& r, const Jac<F>& p) {
   if (jac_is_inf(p)) {
     r = p;
     return;
@@ -271,56 +271,60 @@ __device__ void jac_add_affine(Jac<F>& r, const Jac<F>& p, const F& qx,
   f_sub(r.y, t, z1z1);             // Y3 = r (V - X3) - 2 Y1 J
 }
 
-// r = p + q (add-2007-bl); r may alias p or q
-template <class F>
-__device__ void jac_add(Jac<F>& r, const Jac<F>& p, const Jac<F>& q) {
-  if (jac_is_inf(p)) {
-    r = q;
+// acc += Q (add-2007-bl with Z3 = 2 Z1 Z2 H), Q's raw Montgomery words
+// in memory (global or shared): word k of coordinate j at
+// q[(j fw + k) STRIDE].  Each coordinate of Q is read where it is first
+// needed (Z2 twice), so that at most five values besides acc are live (the
+// G2 kernels' register budget).  Every case: Q or acc at infinity, acc =
+// Q (the doubling) and acc = -Q (infinity).
+template <class F, int STRIDE = 1>
+__device__ __forceinline__ void jac_add_from(Jac<F>& acc, const uint32_t* q) {
+  constexpr int fw = FieldWords<F>::N;
+  F z2, t0, t1, t2, t3;
+  f_load_raw<F, STRIDE>(z2, q + 2 * fw * STRIDE);
+  if (f_is_zero(z2)) return;
+  if (jac_is_inf(acc)) {
+    f_load_raw<F, STRIDE>(acc.x, q);
+    f_load_raw<F, STRIDE>(acc.y, q + fw * STRIDE);
+    acc.z = z2;
     return;
   }
-  if (jac_is_inf(q)) {
-    r = p;
-    return;
-  }
-  F z1z1, z2z2, u1, u2, s1, s2, h, i, j, rr, v, t, x3, y3, z3;
-  f_sqr(z1z1, p.z);
-  f_sqr(z2z2, q.z);
-  f_mul(u1, p.x, z2z2);
-  f_mul(u2, q.x, z1z1);
-  f_mul(s1, p.y, q.z);
-  f_mul(s1, s1, z2z2);
-  f_mul(s2, q.y, p.z);
-  f_mul(s2, s2, z1z1);
-  f_sub(h, u2, u1);
-  f_sub(rr, s2, s1);
-  if (f_is_zero(h)) {
-    if (f_is_zero(rr)) {
-      jac_double(r, p);
+  f_sqr(t0, z2);                   // Z2Z2
+  f_mul(t1, acc.x, t0);            // U1 = X1 Z2Z2
+  f_mul(t2, acc.y, z2);
+  f_mul(t2, t2, t0);               // S1 = Y1 Z2 Z2Z2
+  f_sqr(t0, acc.z);                // Z1Z1
+  f_load_raw<F, STRIDE>(z2, q);
+  f_mul(t3, z2, t0);
+  f_sub(t3, t3, t1);               // H = U2 - U1, U2 = X2 Z1Z1
+  f_load_raw<F, STRIDE>(z2, q + fw * STRIDE);
+  f_mul(z2, z2, acc.z);
+  f_mul(z2, z2, t0);
+  f_sub(t0, z2, t2);               // S2 - S1, S2 = Y2 Z1 Z1Z1
+  if (f_is_zero(t3)) {
+    if (f_is_zero(t0)) {
+      jac_double(acc, acc);        // acc = Q
     } else {
-      jac_set_inf(r);
+      jac_set_inf(acc);            // acc = -Q
     }
     return;
   }
-  f_add(i, h, h);
-  f_sqr(i, i);                     // I = (2 H)^2
-  f_mul(j, h, i);
-  f_add(rr, rr, rr);               // r = 2 (S2 - S1)
-  f_mul(v, u1, i);
-  f_sqr(x3, rr);
-  f_sub(x3, x3, j);
-  f_sub(x3, x3, v);
-  f_sub(x3, x3, v);                // X3 = r^2 - J - 2 V
-  f_sub(t, v, x3);
-  f_mul(y3, rr, t);
-  f_mul(t, s1, j);
-  f_add(t, t, t);
-  f_sub(y3, y3, t);                // Y3 = r (V - X3) - 2 S1 J
-  f_add(z3, p.z, q.z);
-  f_sqr(z3, z3);
-  f_sub(z3, z3, z1z1);
-  f_sub(z3, z3, z2z2);
-  f_mul(z3, z3, h);                // Z3 = ((Z1 + Z2)^2 - Z1Z1 - Z2Z2) H
-  r.x = x3;
-  r.y = y3;
-  r.z = z3;
+  f_load_raw<F, STRIDE>(z2, q + 2 * fw * STRIDE);
+  f_mul(z2, z2, acc.z);
+  f_mul(z2, z2, t3);
+  f_add(acc.z, z2, z2);            // Z3 = 2 Z1 Z2 H
+  f_add(z2, t3, t3);
+  f_sqr(z2, z2);                   // I = (2 H)^2
+  f_mul(t3, t3, z2);               // J = H I
+  f_mul(t1, t1, z2);               // V = U1 I
+  f_mul(t2, t2, t3);
+  f_add(t2, t2, t2);               // 2 S1 J
+  f_add(t0, t0, t0);               // r = 2 (S2 - S1)
+  f_sqr(acc.x, t0);
+  f_sub(acc.x, acc.x, t3);
+  f_sub(acc.x, acc.x, t1);
+  f_sub(acc.x, acc.x, t1);         // X3 = r^2 - J - 2 V
+  f_sub(t1, t1, acc.x);
+  f_mul(t1, t0, t1);
+  f_sub(acc.y, t1, t2);            // Y3 = r (V - X3) - 2 S1 J
 }

@@ -45,9 +45,17 @@ _LIBS = {
             ctypes.c_int, ctypes.c_int, _P],
     }),
     **{f"bn254_msm_{g}": (f"bn254_msm_{g}.cu", {
-        f"bn254_msm_{g}_launch": [
-            _P, ctypes.c_int64, _P, _P, _P, ctypes.c_int64, _P, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, _P, _P, _P],
+        f"bn254_msm_{g}_prepare": [_P, _P, ctypes.c_int64, ctypes.c_int,
+                                   ctypes.c_int, _P, _P, _P],
+        f"bn254_msm_{g}_chunks": [
+            _P, _P, _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+            ctypes.c_int64, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P],
+        f"bn254_msm_{g}_running": [
+            _P, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, _P, ctypes.c_int64, _P, _P],
+        f"bn254_msm_{g}_tree": [_P, ctypes.c_int64, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, _P, _P],
+        f"bn254_msm_{g}_combine": [_P, ctypes.c_int, ctypes.c_int, _P, _P],
         f"bn254_fixed_base_{g}_launch": [_P, _P, _P, ctypes.c_int64, _P],
     }) for g in ("g1", "g2")},
     "fr_ntt": ("fr_ntt.cu", {

@@ -19,11 +19,15 @@ are (n, 4) words of canonical Fr values (below r).
     ``to_affine_g2`` turn it into host Python ints.  On a CUDA tensor they
     launch the ``bn254_msm_g1`` / ``bn254_msm_g2`` kernels
     (``csrc/bn254_msm.cuh``, built as ``bn254_msm_g1.cu`` and
-    ``bn254_msm_g2.cu``): Pippenger with c-bit windows, the points
-    grouped by digit with ``torch.sort`` (glue), the bucket sums, the
-    windows' running sums and their combination on the card.  On a CPU
+    ``bn254_msm_g2.cu``): Pippenger with signed c-bit digits, the entries
+    ordered by one ``torch.sort`` of 32-bit keys (glue, ``msm_schedule``),
+    bucket sums over chunks of equal length with their edges reduced level
+    by level, running sums over segments level by level, a tree over each
+    window and the windows' combination, every launch sized by
+    ``msm_plan(n, c)`` so that nothing waits for the host.  On a CPU
     tensor they run the plain version ``_msm_plain``: a double-and-add over
-    all points at once, then a pairwise sum.
+    all points at once, then a pairwise sum.  ``_msm_model`` is the
+    kernels' schedule step by step in plain PyTorch, for the tests.
   * ``fixed_base_g1(gen, scalars)`` / ``fixed_base_g2``: k_i gen for a
     batch of scalars, affine words, (n, 8) / (n, 16), zero words for
     k_i = 0.  ``gen`` is a host affine point (Python ints).  Both walk
@@ -59,9 +63,19 @@ FB_WINDOWS = 32             # the fixed-base table's 8-bit windows
 FB_DIGITS = 255             # its entries a window, d = 1..255
 
 PLAIN_CHUNK = 1 << 14       # rows of the plain versions at a time
-# the kernels' launch shapes (csrc/bn254_msm.cuh)
-MIN_RUN = 16                # the shortest run of points a thread sums
-SEGMENTS = 256              # running-sum segments a window, at most
+MAX_WINDOW_BITS = 20        # the widest window window_bits chooses
+MIXED_PRODUCTS = 11         # field products of a mixed addition (7 M + 4 S)
+FULL_PRODUCTS = 16          # of a full one (11 M + 5 S)
+# the MSM kernels' schedule (csrc/bn254_msm.cuh; a CPU test reads them)
+MSM_NONE = 0x7FFFFFFF       # the key of a zero digit: it sorts last
+NONE_BUCKET = MSM_NONE >> 1     # its bucket, and an empty edge item's
+CHUNK = 64                  # sorted entries a thread of the bucket sums adds
+EDGE_CHUNK = 16             # edge items a thread of a level adds
+SEGMENT = 16                # buckets of a first-level running-sum segment
+SEGMENT_BITS = 4            # log2(SEGMENT)
+SEGMENT_HI = 4              # items of a segment of a higher level
+SEGMENT_HI_BITS = 2         # log2(SEGMENT_HI)
+FAN = 4                     # items a node of the window tree adds
 
 
 # ---------------------------------------------------------------------------
@@ -254,7 +268,8 @@ def _add(F, p1, p2):
     zero = F.is_zero(torch.stack([h, rr]))
     h0, r0 = zero[0], zero[1]
     out = (x3, y3, z3, h0 & ~r0)
-    out = _pick(F, h0 & r0, _double(F, p1), out)
+    if bool((h0 & r0).any()):           # P1 = P2 somewhere: the doubling
+        out = _pick(F, h0 & r0, _double(F, p1), out)
     out = _pick(F, p2[3], p1, out)
     return _pick(F, p1[3], p2, out)
 
@@ -414,6 +429,60 @@ def fixed_base_cases(n: int, seed: int, block: int = 0) -> list:
     return ks
 
 
+def msm_cases(group: str, n: int, seed: int, c: int | None = None):
+    """n affine host points ((a + i b) G of G1's or G2's generator, one
+    host addition each) and n scalars (Python ints) that hold every edge
+    of the MSM kernels, for the tests: a point at infinity (row 3), zero
+    scalars (0, 1), r - 1 (2), a point repeated under one scalar (4, 5 and
+    8..15), a point beside its negation under one scalar (6, 7), one point
+    under the signed digits +d and -d in window 0 of c-bit windows (16,
+    17; c = window_bits(n) by default), scalars whose every window holds
+    the digit 2^(c - 1) (18) or -(2^(c - 1) - 1) (19), and scalar 1 on
+    rows 32 .. n / 2 (a bucket of half the points, as Groth16's witnesses
+    have, across many chunks of the bucket sums).  n >= 20."""
+    rng = random.Random(seed)
+    c = c or window_bits(n)
+    if group == "g1":
+        step = bn254.g1_mul(bn254.g1_from_affine(bn254.G1_GEN),
+                            rng.randrange(R))
+        cur = bn254.g1_mul(bn254.g1_from_affine(bn254.G1_GEN),
+                           rng.randrange(R))
+        pts = []
+        for _ in range(n):
+            pts.append(bn254.g1_to_affine(cur))
+            cur = bn254.g1_add(cur, step)
+
+        def neg(p):
+            return p[0], (P - p[1]) % P
+    else:
+        step = bn254_tower.g2_mul(bn254_tower.G2_GEN, rng.randrange(R))
+        cur = bn254_tower.g2_mul(bn254_tower.G2_GEN, rng.randrange(R))
+        pts = []
+        for _ in range(n):
+            pts.append(cur)
+            cur = bn254_tower.g2_add(cur, step)
+        neg = bn254_tower.g2_neg
+    sc = [rng.randrange(R) for _ in range(n)]
+    pts[3] = None
+    pts[5], sc[5] = pts[4], sc[4]
+    pts[7], sc[7] = neg(pts[6]), sc[6]
+    pts[8:16] = [pts[8]] * 8
+    sc[8:16] = [sc[8]] * 8
+    sc[0] = sc[1] = 0
+    sc[2] = R - 1
+    half = 1 << (c - 1)
+    d = min(5, half - 1)
+    pts[17] = pts[16]
+    sc[16] = rng.randrange(R >> (c + 1)) << c | d
+    sc[17] = rng.randrange(R >> (c + 1)) << c | ((1 << c) - d)
+    windows = range(0, SCALAR_BITS - c, c)
+    sc[18] = sum(half << w for w in windows)
+    sc[19] = sum((half + 1) << w for w in windows)
+    for i in range(32, n // 2):
+        sc[i] = 1
+    return pts, sc
+
+
 def _batch_inverse(F, z):
     """z^-1 of nonzero (n, ...) values by Montgomery's trick over groups of
     F.block lanes, as the fixed-base kernel does over a block: a product
@@ -479,66 +548,288 @@ def _check(name: str, t: torch.Tensor, width: int):
         raise ValueError(f"{name}: a contiguous tensor expected")
 
 
+def n_windows(c: int) -> int:
+    """Signed c-bit windows of a scalar below 2^254: ceil(255 / c), so the
+    top window takes the last carry (c = 2: 128 windows)."""
+    return (SCALAR_BITS + c) // c
+
+
 def window_bits(n: int) -> int:
-    """The c minimising ceil(254 / c) (n + 2^(c + 1)): the bucket
-    additions and the running sums of Pippenger with c-bit windows."""
-    return min(range(2, 21), key=lambda c: (
-        -(-SCALAR_BITS // c) * (n + (1 << (c + 1))), c))
+    """The c minimising n_windows(c) (n MIXED_PRODUCTS + 2^c
+    FULL_PRODUCTS): a mixed addition a digit of each of n points and two
+    full additions a bucket (2^(c - 1) of them a window) for the running
+    sums."""
+    return min(range(2, MAX_WINDOW_BITS + 1), key=lambda c: (
+        n_windows(c) * (n * MIXED_PRODUCTS + (1 << c) * FULL_PRODUCTS), c))
 
 
-def _digits(scalars, c: int, n_windows: int):
-    """(n, 4) words -> (n_windows, n) int64 c-bit digits (window w holds
-    bits w c .. w c + c - 1)."""
-    mask = (1 << c) - 1
+def _window_raw(scalars, off: int, c: int):
+    """(n, 4) int64 words -> (n,) bits off .. off + c - 1 (c <= 20)."""
+    word, bit = divmod(off, 64)
+    if word >= 4:
+        return torch.zeros_like(scalars[:, 0])
+    d = scalars[:, word] >> bit
+    if bit:
+        d = d & ((1 << (64 - bit)) - 1)
+    if bit + c > 64 and word < 3:
+        d = d | (scalars[:, word + 1] << (64 - bit))
+    return d & ((1 << c) - 1)
+
+
+def signed_digits(scalars, c: int):
+    """(n, 4) words (read below 2^254) -> (n_windows(c), n) int64 signed
+    digits: window w's bits plus the carry t; t > 2^(c - 1) gives
+    t - 2^c and a carry of 1, so every digit lies in
+    (-2^(c - 1), 2^(c - 1)] and sum_w d_w 2^(c w) is the scalar.  The plain
+    version of msm_prepare's digits (csrc/bn254_msm.cuh)."""
+    s = scalars.clone()
+    s[:, 3] &= (1 << (SCALAR_BITS - 192)) - 1
+    half = 1 << (c - 1)
+    carry = torch.zeros_like(s[:, 0])
     rows = []
-    for w in range(n_windows):
-        off = w * c
-        word, bit = off // 64, off % 64
-        d = (scalars[:, word] >> bit) & ((1 << (64 - bit)) - 1)
-        if bit + c > 64 and word < 3:
-            d = d | (scalars[:, word + 1] << (64 - bit))
-        rows.append(d & mask)
+    for w in range(n_windows(c)):
+        t = _window_raw(s, w * c, c) + carry
+        carry = (t > half).to(torch.int64)
+        rows.append(t - (carry << c))
     return torch.stack(rows)
 
 
-def msm_schedule(points, scalars):
-    """The glue of the MSM kernels, on the points' device: the window
-    bits c, the point of every (window, digit) entry in digit order, and
-    the runs of at most `k` entries of one bucket that a thread of the
-    first kernel sums (a bucket of many entries is cut into runs of about
-    sqrt(its size), whose sums the second kernel adds).  Zero digits and
-    points at infinity take no part.  -> dict"""
+def msm_keys(points, scalars, c: int):
+    """Plain version of msm_prepare's keys: (n_windows(c) n,) int32, entry
+    w n + i the key 2 bucket + sign of point i's digit in window w (bucket
+    w 2^(c - 1) + |d| - 1, sign 1 for d < 0), MSM_NONE for a zero digit or
+    a point at infinity."""
+    d = signed_digits(scalars, c)
+    live = (points != 0).any(-1)
+    w = torch.arange(d.shape[0], device=d.device)[:, None]
+    key = ((w << (c - 1)) + d.abs() - 1) * 2 + (d < 0).to(torch.int64)
+    key = torch.where((d != 0) & live, key, MSM_NONE)
+    return key.reshape(-1).to(torch.int32)
+
+
+def msm_schedule(keys):
+    """The glue between msm_prepare and the bucket sums: one stable sort of
+    the 32-bit keys (window, |digit|, sign; zero digits, MSM_NONE, last)
+    -> (sorted keys, each entry's index w n + i).
+
+    What bounds the MSM kernels is the 32-bit multiplies of their
+    additions; what keeps them from that bound is additions that fall on
+    the threads unevenly (a bucket of half the points, as Groth16's 0/1
+    witnesses make, summed by few threads) or in long serial chains, and
+    any wait for the host.  This schedule gives every thread of the
+    bucket sums the same CHUNK sorted entries, whatever the buckets'
+    sizes, reduces the chunks' edges level by level, and leaves nothing
+    whose size depends on the data: both outputs are as long as the
+    keys, n_windows(c) n, and every later launch is sized by
+    msm_plan(n, c)."""
+    return torch.sort(keys, stable=True)
+
+
+def msm_plan(n: int, c: int) -> dict:
+    """Every launch size of the MSM kernels, from n and c alone.
+    ``chunks[0]``: the bucket sums' threads over the n_windows(c) n sorted
+    entries, CHUNK each; ``chunks[k]``: level k's threads over the
+    2 chunks[k - 1] edge items, EDGE_CHUNK each, until one is left.
+    ``run_counts[j]`` items a window at running-sum level j in
+    ``run_groups[j]`` segments (level 0: the 2^(c - 1) buckets in segments
+    of SEGMENT; level j + 1: the totals of level j's segments 1, 2, ...,
+    in segments of SEGMENT_HI);
+    ``tree[k]`` items a window at the tree's level k, from the sum of
+    run_groups down to 1."""
+    windows = n_windows(c)
+    entries = windows * n
+    chunks = [-(-entries // CHUNK)]
+    while chunks[-1] > 1:
+        chunks.append(-(-2 * chunks[-1] // EDGE_CHUNK))
+    counts, groups = [1 << (c - 1)], []
+    while True:
+        groups.append(-(-counts[-1] // (SEGMENT_HI if groups else SEGMENT)))
+        if groups[-1] == 1:
+            break
+        counts.append(groups[-1] - 1)
+    tree = [sum(groups)]
+    while tree[-1] > 1:
+        tree.append(-(-tree[-1] // FAN))
+    return {"c": c, "windows": windows, "buckets": windows << (c - 1),
+            "entries": entries, "chunks": chunks, "run_counts": counts,
+            "run_groups": groups, "tree": tree}
+
+
+# -- the step-by-step model of the kernels' schedule -------------------------
+
+def _gather(pt, idx):
+    return tuple(a[idx] for a in pt)
+
+
+def _scatter(dst, idx, pt):
+    for a, b in zip(dst, pt):
+        a[idx] = b
+
+
+def _chunk_level(F, bucket, item, length: int, buckets):
+    """One level of msm_chunks over `bucket` (count,) int64 bucket ids
+    (NONE_BUCKET for none), item(e) the points of entries e: all chunks at
+    once, one entry of each a step.  Runs inside a chunk go to `buckets`;
+    -> the edge items (bucket ids, points), or None for one chunk."""
+    count = bucket.shape[0]
+    chunks = -(-count // length)
+    if chunks == 0:
+        return None
+    dev = bucket.device
+    none = torch.full((1,), NONE_BUCKET, dtype=torch.int64, device=dev)
+    start = torch.arange(chunks, device=dev) * length
+    end = torch.clamp(start + length, max=count)
+    padded = torch.cat([bucket, none.expand(chunks * length - count + 1)])
+    before = torch.where(start > 0, padded[start - 1], none)
+    after = padded[end]
+    acc = _infinity(F, chunks, dev)
+    cur, run = padded[start], start.clone()
+    head_b, tail_b = none.repeat(chunks), none.repeat(chunks)
+    head, tail = _infinity(F, chunks, dev), _infinity(F, chunks, dev)
+
+    def flush(mask, e):
+        nonlocal head, tail
+        m = mask & (cur != NONE_BUCKET)
+        from_before = (run == start) & (before == cur)
+        on_after = (e == end) & (after == cur)
+        to_head = m & from_before
+        to_tail = m & ~from_before & on_after
+        head_b[to_head] = cur[to_head]
+        head = _pick(F, to_head, acc, head)
+        tail_b[to_tail | (to_head & on_after)] = cur[
+            to_tail | (to_head & on_after)]
+        tail = _pick(F, to_tail, acc, tail)
+        direct = m & ~from_before & ~on_after
+        _scatter(buckets, cur[direct], _gather(acc, direct))
+
+    for j in range(length):
+        e = start + j
+        valid = e < end
+        b = padded[e]
+        change = valid & (b != cur)
+        flush(change, e)
+        cur = torch.where(change, b, cur)
+        run = torch.where(change, e, run)
+        acc = _pick(F, change, _infinity(F, chunks, dev), acc)
+        add = valid & (b != NONE_BUCKET)
+        acc = _pick(F, add, _add(F, acc, item(torch.where(add, e, 0))), acc)
+    flush(torch.ones_like(run, dtype=torch.bool), end)
+    if chunks == 1:
+        return None
+    out_b = torch.stack([head_b, tail_b], 1).reshape(-1)
+    out = tuple(torch.stack([h, t], 1).reshape(-1, *h.shape[1:])
+                for h, t in zip(head, tail))
+    return out_b, out
+
+
+def _weighted_level(F, items, seg: int, bits: int):
+    """One running-sum level (msm_running, msm_running_warp) over
+    (windows, count) points (weights 1 .. count) in segments of `seg` =
+    2^bits: the segments' sums and their totals times `seg`, each
+    (windows, groups)."""
+    windows, count = items[3].shape
+    groups = -(-count // seg)
+    pad = groups * seg - count
+    dev = items[3].device
+    inf = _infinity(F, windows * pad, dev)
+    parts = tuple(torch.cat([a, b.reshape(windows, pad, *a.shape[2:])], 1)
+                  .reshape(windows * groups, seg, *a.shape[2:])
+                  for a, b in zip(items, inf))
+    running = _infinity(F, windows * groups, dev)
+    sums = _infinity(F, windows * groups, dev)
+    for i in range(seg - 1, -1, -1):
+        running = _add(F, running, tuple(a[:, i] for a in parts))
+        sums = _add(F, sums, running)
+    for _ in range(bits):
+        running = _double(F, running)
+
+    def shaped(pt):
+        return tuple(a.reshape(windows, groups, *a.shape[1:]) for a in pt)
+    return shaped(sums), shaped(running)
+
+
+def _tree_level(F, items):
+    """One level of msm_tree: (windows, count) points -> (windows,
+    ceil(count / FAN)) sums of FAN consecutive items."""
+    windows, count = items[3].shape
+    groups = -(-count // FAN)
+    pad = groups * FAN - count
+    inf = _infinity(F, windows * pad, items[3].device)
+    seg = tuple(torch.cat([a, b.reshape(windows, pad, *a.shape[2:])], 1)
+                .reshape(windows * groups, FAN, *a.shape[2:])
+                for a, b in zip(items, inf))
+    acc = _infinity(F, windows * groups, items[3].device)
+    for i in range(FAN):
+        acc = _add(F, acc, tuple(a[:, i] for a in seg))
+    return tuple(a.reshape(windows, groups, *a.shape[1:]) for a in acc)
+
+
+def _msm_model(F, points, scalars, c: int | None = None):
+    """The MSM kernels' schedule step by step in plain PyTorch, over
+    ``_add`` / ``_double``: signed digits (msm_keys), the sort
+    (msm_schedule), the chunks' bucket sums and their edge items level by
+    level, the running sums over segments and the levels of their totals,
+    the window tree and the combination; a Jacobian triple of canonical
+    words.  Used by the tests and ``chip_smoke.py`` to hold the kernels'
+    algorithm; the CPU path of msm_g1 / msm_g2 is ``_msm_plain``."""
     n = points.shape[0]
     dev = points.device
-    c = window_bits(n)
-    n_windows = -(-SCALAR_BITS // c)
-    nb = 1 << c
-    digits = _digits(scalars, c, n_windows)
-    digits[:, (points == 0).all(-1)] = 0
-    keys = (torch.arange(n_windows, device=dev)[:, None] * nb
-            + digits).reshape(-1)
-    order = torch.sort(keys).indices
-    counts = torch.bincount(keys, minlength=n_windows * nb)
-    starts = torch.cumsum(counts, 0) - counts
-    live = counts.clone()
-    live[::nb] = 0                                   # digit 0: no bucket
-    k = max(MIN_RUN, math.isqrt(int(live.max())) + 1)
-    n_runs = (live + k - 1) // k
-    first = torch.zeros(n_windows * nb + 1, dtype=torch.int64, device=dev)
-    first[1:] = torch.cumsum(n_runs, 0)
-    bucket = torch.repeat_interleave(
-        torch.arange(n_windows * nb, device=dev), n_runs)
-    j = torch.arange(bucket.shape[0], device=dev) - first[bucket]
-    run_start = starts[bucket] + j * k
-    run_end = torch.minimum(run_start + k, starts[bucket] + counts[bucket])
-    return {"c": c, "n_windows": n_windows,
-            "point": (order % max(n, 1)).to(torch.int32),
-            "run_start": run_start.to(torch.int32),
-            "run_end": run_end.to(torch.int32),
-            "first_run": first.to(torch.int32)}
+    c = c or window_bits(n)
+    plan = msm_plan(n, c)
+    windows, half = plan["windows"], 1 << (c - 1)
+    keys, index = msm_schedule(msm_keys(points, scalars, c))
+    keys = keys.to(torch.int64)
+    base = _affine_in(F, points)
+    none = keys == MSM_NONE
+
+    def entry(e):
+        k = keys[e]
+        i = torch.where(none[e], 0, index[e] - (k >> c) * n)
+        x, y = base[0][i], base[1][i]
+        y = _where(F, (k & 1).bool(), F.sub(torch.zeros_like(y), y), y)
+        return x, y, base[2][i], torch.zeros_like(none[e])
+
+    buckets = tuple(a.clone() for a in _infinity(F, plan["buckets"], dev))
+    level = _chunk_level(F, torch.where(none, NONE_BUCKET, keys >> 1), entry,
+                         CHUNK, buckets)
+    while level is not None:
+        ids, pts = level
+        level = _chunk_level(F, ids, lambda e, pts=pts: _gather(pts, e),
+                             EDGE_CHUNK, buckets)
+    items = tuple(a.reshape(windows, half, *a.shape[1:]) for a in buckets)
+    slots = []
+    for j, _ in enumerate(plan["run_groups"]):
+        sums, items = _weighted_level(
+            F, items, *((SEGMENT_HI, SEGMENT_HI_BITS) if j else
+                        (SEGMENT, SEGMENT_BITS)))
+        slots.append(sums)
+        items = tuple(a[:, 1:] for a in items)
+    items = tuple(torch.cat(a, 1) for a in zip(*slots))
+    while items[3].shape[1] > 1:
+        items = _tree_level(F, items)
+    acc = _infinity(F, 1, dev)
+    for w in range(windows - 1, -1, -1):
+        if not bool(acc[3].all()):          # infinity doubles to itself
+            for _ in range(c):
+                acc = _double(F, acc)
+        acc = _add(F, acc, tuple(a[w, :1] for a in items))
+    return _jacobian_out(F, tuple(a[0] for a in acc))
 
 
-def _msm(name: str, F, points, scalars):
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, width: int):
+    if t.dim() != 2 or t.shape[1] != width or t.dtype != torch.int64:
+        raise ValueError(f"{name}: (n, {width}) int64 words expected, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    if t.device.type == "cuda" and not t.is_contiguous():
+        raise ValueError(f"{name}: a contiguous tensor expected")
+
+
+def _msm(name: str, F, points, scalars, c: int | None = None,
+         stages: list | None = None):
     width = 2 * F.words
     _check(name, points, width)
     _check(name, scalars, 4)
@@ -548,26 +839,86 @@ def _msm(name: str, F, points, scalars):
                          f"{scalars.device}")
     if points.device.type == "cpu":
         return _msm_plain(F, points, scalars)
-    dev = points.device
-    out = torch.empty((3, F.words), dtype=torch.int64, device=dev)
-    sched = msm_schedule(points, scalars)
-    c, n_windows = sched["c"], sched["n_windows"]
-    n_runs = sched["run_start"].shape[0]
-    n_buckets = n_windows << c
-    segments = min(SEGMENTS, (1 << c) - 1)
-    jac = 3 * F.words                   # int64 words of a Jacobian point
-    scratch = torch.empty(
-        (points.shape[0] * width + (n_runs + n_buckets + n_windows
-                                    * (segments + 1)) * jac,),
-        dtype=torch.int64, device=dev)
-    lib = kernels.load(name)
     kernels.LAUNCHES[name] += 1
-    kernels.check(getattr(lib, f"{name}_launch")(
-        points.data_ptr(), points.shape[0], sched["point"].data_ptr(),
-        sched["run_start"].data_ptr(), sched["run_end"].data_ptr(), n_runs,
-        sched["first_run"].data_ptr(), c, n_windows, segments,
-        scratch.data_ptr(), out.data_ptr(), kernels.stream_ptr(dev)),
-        f"{name}_launch")
+    return _msm_launch(name, F, points, scalars, c, stages)
+
+
+def _msm_launch(name: str, F, points, scalars, c, stages):
+    """The MSM kernels in the order of msm_plan(n, c): msm_prepare, the
+    sort, msm_chunks (the bucket sums, then each edge level), msm_running
+    (each level), msm_tree (each level), msm_combine.  `stages`, when a
+    list, receives (stage, CUDA event recorded after it) pairs."""
+    n = points.shape[0]
+    dev = points.device
+    plan = msm_plan(n, c or window_bits(n))
+    c, windows = plan["c"], plan["windows"]
+    jac = 3 * F.words                   # int64 words of a Jacobian point
+    lib = kernels.load(name)
+    stream = kernels.stream_ptr(dev)
+
+    def launch(stage, *args):
+        kernels.check(getattr(lib, f"{name}_{stage}")(*args, stream),
+                      f"{name}_{stage}")
+
+    def mark(stage):
+        if stages is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            stages.append((stage, ev))
+
+    def item(t, k):                     # the address of point k of t
+        return t.data_ptr() + k * jac * 8
+
+    mark("start")
+    mont = torch.empty_like(points)
+    keys = torch.empty(plan["entries"], dtype=torch.int32, device=dev)
+    launch("prepare", points.data_ptr(), scalars.data_ptr(), n, c, windows,
+           mont.data_ptr(), keys.data_ptr())
+    mark("prepare")
+    keys, index = msm_schedule(keys)
+    mark("sort")
+    buckets = torch.zeros((plan["buckets"], jac), dtype=torch.int64,
+                          device=dev)
+    src, count, length = mont, plan["entries"], CHUNK
+    for k, chunks in enumerate(plan["chunks"]):
+        last = chunks <= 1
+        out_keys = None if last else torch.empty(
+            2 * chunks, dtype=torch.int32, device=dev)
+        out_pts = None if last else torch.empty(
+            (2 * chunks, jac), dtype=torch.int64, device=dev)
+        launch("chunks", keys.data_ptr(), index.data_ptr() if k == 0 else 0,
+               src.data_ptr(), n, c, count, chunks, length, int(k == 0),
+               buckets.data_ptr(), 0 if last else out_keys.data_ptr(),
+               0 if last else out_pts.data_ptr())
+        mark("chunks" if k == 0 else "edges")
+        keys, src, count, length = out_keys, out_pts, 2 * chunks, \
+            EDGE_CHUNK
+    groups = plan["run_groups"]
+    slots = torch.empty((windows, sum(groups), jac), dtype=torch.int64,
+                        device=dev)
+    src, stride, offset = buckets.data_ptr(), 1 << (c - 1), 0
+    hold = []                           # each level reads the one before
+    for level, (count, g) in enumerate(zip(plan["run_counts"], groups)):
+        totals = None if g == 1 else torch.empty(
+            (windows, g, jac), dtype=torch.int64, device=dev)
+        hold.append(totals)
+        launch("running", src, stride, count, g, windows, level,
+               item(slots, offset), sum(groups),
+               0 if totals is None else totals.data_ptr())
+        if totals is not None:
+            src, stride = item(totals, 1), g
+        offset += g
+    mark("running")
+    cur = slots
+    for count, g in zip(plan["tree"], plan["tree"][1:]):
+        nxt = torch.empty((windows, g, jac), dtype=torch.int64, device=dev)
+        launch("tree", cur.data_ptr(), count, count, g, windows,
+               nxt.data_ptr())
+        cur = nxt
+    mark("tree")
+    out = torch.empty((3, F.words), dtype=torch.int64, device=dev)
+    launch("combine", cur.data_ptr(), c, windows, out.data_ptr())
+    mark("combine")
     return out
 
 
