@@ -78,13 +78,21 @@ Phases (any failure exits non-zero and prints no result line):
      byte-equal to tests/data/g16_devnet_root_r11/, be accepted from the
      files alone, and be refused with a changed public; its publics are
      the 52 ``groth16_publics`` of PROOF_a7_cascade_devnet.json.  Then the
-     Poseidon-BN254 kernels are held bit for bit at its shapes (the cm1
-     leaves and the first tree level).
+     Poseidon-BN254 kernels are held bit for bit at its shapes (the cm1,
+     cm3, const and cm4 leaves and the first tree level), and each shape
+     the stage launched them at (recorded around the wrappers, written to
+     build/poseidon_bn254_final_shapes.json) is timed again: their time in
+     the stage, summed by shape.
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
-versions: poseidon_bn254_permute at every width t = 2..17 (edge inputs 0,
-1, r - 1, r, r + 1, 2^256 - 1 and inputs above r included) and on 2^16 of
-the 2^20 t = 17 states it is timed on; poseidon_bn254_leaf_hash at widths
-1, 3, 4, 5, 6, 48, 50, 60 and 519 and at the 2^17 x 60 rows it is timed on.
+versions (and prints how many warps of each an SM holds):
+poseidon_bn254_permute at every width t = 2..17 on 3 states fewer and 5
+more than the batch at which the launcher turns from 8 lanes a state to 4
+(the library's poseidon_bn254_few_states), on extreme states (each of 0,
+1, r - 1, r, r + 1, 2^256 - 1 in every lane, lanes mixed over them, and
+inputs above r), on 2^16 of the 2^20 t = 17 states it is timed on and on
+the 8,192 (a 2^17-leaf tree's first level) it is timed on too;
+poseidon_bn254_leaf_hash at widths 1, 3, 4, 5, 6, 39, 48, 50, 51, 60 and
+519 and at the 2^17 x 60 rows it is timed on.
 And Groth16's kernels: bn254_fixed_base_g1 / _g2 on 2^12 + 37 scalars
 (``bn254_msm.fixed_base_cases``: 0, 1, 255, 256, r - 1, r - 2, 2^253,
 bytes of 0xFF, d 2^(8w) at every window, r and a scalar whose last
@@ -147,6 +155,9 @@ RECF_FIXTURE = os.path.join(REPO, "tests", "data",
                             "recF_devnet_root_q4.proof.json")
 G16_FIXTURE = os.path.join(REPO, "tests", "data", "g16_devnet_root_r11")
 G16_OUT = os.path.join(REPO, "build", "g16_devnet_root_r11")
+# the shape of every Poseidon-BN254 launch of phase 8, with its launches
+# (xlayer_prover_tpu_torch/poseidon_bn254_times.py --shapes reads it)
+BN254_SHAPES = os.path.join(REPO, "build", "poseidon_bn254_final_shapes.json")
 SNARKJS_FILES = ("verification_key.json", "proof.json", "public.json")
 CASCADE_RECORD = os.path.join(REPO, "PROOF_a7_cascade_devnet.json")
 ZKEVM_FIXTURE = os.path.join(REPO, "tests", "data",
@@ -255,6 +266,16 @@ def leaf_mul32(width: int) -> int:
     return full * bn254_mul32(17) + (bn254_mul32(tail + 1) if tail else 0)
 
 
+def resident_warps(lib) -> dict:
+    """Warps an SM holds of the Poseidon-BN254 kernel each shape runs on
+    (the launchers choose the group of lanes a state from t and n)."""
+    fn = lib.poseidon_bn254_resident_warps
+    return {"permute_t17_2e20": fn(17, 0, 1 << 20, 0),
+            "permute_t17_512": fn(17, 0, 512, 0),
+            "leaf_hash_w60": fn(5, 1, 1 << 17, 60),
+            "leaf_hash_w6": fn(3, 1, 1 << 17, 6)}
+
+
 def bn254_permute_work(n: int) -> dict:
     """Bytes and 32-bit multiplies of poseidon_bn254_permute over n
     states of t = 17: each state read and written once."""
@@ -353,6 +374,7 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
     plain_ms = _cuda_ms(lambda: poseidon_gl._permute_plain(t), 2)
     rows.append({
         "name": "poseidon_permute", "route": "cuda",
+        "more_shapes": [],
         "source": "xlayer_prover_tpu_torch/csrc/poseidon_gl.cu",
         "replaces": "xlayer_prover_tpu/ops/pallas_poseidon.py:209",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -402,6 +424,7 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
           f"operations)", flush=True)
     rows.append({
         "name": "poseidon_linear_hash", "route": "cuda",
+        "more_shapes": [],
         "source": "xlayer_prover_tpu_torch/csrc/poseidon_gl.cu",
         "replaces": "xlayer_prover_tpu/ops/poseidon_gl.py:153",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -434,6 +457,7 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
     plain_ms = _cuda_ms(lambda: gl._mul_plain(ta, tb), 3)
     rows.append({
         "name": "gl_mul", "route": "cuda",
+        "more_shapes": [],
         "source": "xlayer_prover_tpu_torch/csrc/gl_mul.cu",
         "replaces": "xlayer_prover_tpu/fields/gl.py:154",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -456,38 +480,63 @@ def phase_bn254_kernels(torch, rng):
     from xlayer_prover_tpu_torch.ops import bn254_mont
     from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
 
+    from xlayer_prover_tpu_torch import kernels
+
     cuda = torch.device("cuda")
     int_rate = int_mul_rate(torch)
     fr = pbn.P
-    edges = bn254_mont.to_words([0, 1, fr - 1, fr, fr + 1, (1 << 256) - 1]
+    top = (1 << 256) - 1
+    edges = bn254_mont.to_words([0, 1, fr - 1, fr, fr + 1, top]
                                 ).view(np.uint64)
+    lib = kernels.load("poseidon_bn254")
+    print("poseidon_bn254 resident warps an SM: " + json.dumps(
+        resident_warps(lib)), flush=True)
 
     def fr_states(n, t):
         """Seeded 256-bit inputs (most above r, which the kernel reduces;
-        every other state below 2^252) with the edge states first."""
+        every other state below 2^252) with the extreme states first: each
+        edge in every lane, then lanes mixed over r - 1, 0, r, 2^256 - 1,
+        1 and r - 1 beside 2^256 - 1."""
         w = rng.integers(0, (1 << 64) - 1, size=(n, t, 4), dtype=np.uint64,
                          endpoint=True)
         w[1::2, :, 3] >>= np.uint64(4)
         w[:len(edges)] = edges[:, None, :]
+        for k, cyc in enumerate(((fr - 1, 0, fr, top, 1), (fr - 1, top)),
+                                len(edges)):
+            w[k] = bn254_mont.to_words([cyc[i % len(cyc)] for i in range(t)]
+                                       ).view(np.uint64)
         return w
 
     err = 0
-    for t in range(2, 18):
-        w = fr_states(4096, t)
+    # a batch just under the library's threshold runs at 8 lanes a state
+    # and one just over it at 4 (t >= 6; one lane at t <= 5), each with a
+    # ragged last warp
+    few = lib.poseidon_bn254_few_states()
+    for t, n_states in ((t, n) for t in range(2, 18)
+                        for n in (few - 3, few + 5)):
+        w = fr_states(n_states, t)
         x = gl.from_u64_np(w, cuda)
         got = pbn.permute(x, t)
         err = max(err, _max_abs_err(got, pbn._permute_plain(x, t)))
-        host = [v for k in (3, 7) for v in pbn.host_permute(
+        host = [v for k in (2, 3, 6, 7, 9) for v in pbn.host_permute(
             bn254_mont.from_words(w[k]))]
-        _require(bn254_mont.from_words(got[[3, 7]]) == host,
+        _require(bn254_mont.from_words(got[[2, 3, 6, 7, 9]]) == host,
                  f"poseidon_bn254_permute t={t} equals host_permute")
     n = 1 << 20
     x = gl.from_u64_np(fr_states(n, 17), cuda)
     head = x[:1 << 16]
     err = max(err, _max_abs_err(pbn.permute(head, 17),
                                 pbn._permute_plain(head, 17)))
+    level = x[:8192]
+    err = max(err, _max_abs_err(pbn.permute(level, 17),
+                                pbn._permute_plain(level, 17)))
     _require(err == 0, "poseidon_bn254_permute equals its plain version")
     ms = _cuda_ms(lambda: pbn.permute(x, 17), 3)
+    level_ms = _cuda_ms(lambda: pbn.permute(level, 17), 5)
+    level_bound, _ = _bound_ms(bn254_permute_work(8192), int_rate)
+    print(f"kernel poseidon_bn254_permute at [8192, 17, 4] (a 2^17-leaf "
+          f"tree's first level): {level_ms:.4f} ms (bound "
+          f"{level_bound:.4f} ms)", flush=True)
     plain_ms = _cuda_ms(lambda: pbn._permute_plain(head, 17), 1)
     rows = [{
         "name": "poseidon_bn254_permute", "route": "cuda",
@@ -495,21 +544,25 @@ def phase_bn254_kernels(torch, rng):
         "replaces": "xlayer_prover_tpu/native/posbn.cpp:139",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         **bn254_permute_work(n), "shape": [n, 17, 4],
-        "plain_shape": [1 << 16, 17, 4]}]
-    del x, head
+        "plain_shape": [1 << 16, 17, 4],
+        "more_shapes": [{"shape": [8192, 17, 4], "ms": level_ms,
+                         "bound_ms": level_bound}]}]
+    del x, head, level
     torch.cuda.empty_cache()
 
     err = 0
-    for width in (1, 3, 4, 5, 6, 48, 50, 60, 519):
+    for width in (1, 3, 4, 5, 6, 39, 48, 50, 51, 60, 519):
         r = rng.integers(0, (1 << 64) - 1, size=(4096, width),
                          dtype=np.uint64, endpoint=True)
         r[:6] = np.array([0, 1, gl.P - 1, gl.P, 1 << 63, (1 << 64) - 1],
                          dtype=np.uint64)[:, None]
+        r[6, ::2], r[6, 1::2] = 0, (1 << 64) - 1
         t = gl.from_u64_np(r, cuda)
         got = pbn.leaf_hash(t, width)
         err = max(err, _max_abs_err(got, pbn._leaf_hash_plain(t, width)))
-        _require(bn254_mont.from_words(got[9:10]) ==
-                 [pbn.leaf_hash_host([int(v) for v in r[9]])],
+        _require(bn254_mont.from_words(got[[5, 6, 9]]) ==
+                 [pbn.leaf_hash_host([int(v) for v in r[k]])
+                  for k in (5, 6, 9)],
                  f"poseidon_bn254_leaf_hash width {width} equals the host "
                  "leaf hash")
     m, width = 1 << 17, 60
@@ -529,6 +582,7 @@ def phase_bn254_kernels(torch, rng):
     ms = _cuda_ms(lambda: pbn.leaf_hash(leaves, width), 3)
     rows.append({
         "name": "poseidon_bn254_leaf_hash", "route": "cuda",
+        "more_shapes": [],
         "source": "xlayer_prover_tpu_torch/csrc/poseidon_bn254.cu",
         "replaces": "xlayer_prover_tpu/native/posbn.cpp:215",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -645,6 +699,7 @@ def phase_g16_kernels(torch, rng):
         ms = _cuda_ms(lambda: fn(gen, big_sc), 2)
         rows.append({
             "name": f"bn254_fixed_base_{group}", "route": "cuda",
+            "more_shapes": [],
             "source": src.format(group), "replaces": msm_cpp.format(line),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **fixed_base_work(group, big_sc), "shape": [big],
@@ -698,6 +753,7 @@ def phase_g16_kernels(torch, rng):
               + json.dumps(split), flush=True)
         rows.append({
             "name": f"bn254_msm_{group}", "route": "cuda",
+            "more_shapes": [],
             "source": src.format(group), "replaces": msm_cpp.format(line),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             **msm_work(group, pts, sc), "shape": [big],
@@ -730,6 +786,7 @@ def phase_g16_kernels(torch, rng):
           flush=True)
     rows.append({
         "name": "fr_ntt", "route": "cuda",
+        "more_shapes": [],
         "source": "xlayer_prover_tpu_torch/csrc/fr_ntt.cu",
         "replaces": "xlayer_prover_tpu/snark/groth16.py:42",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **ntt_work(n),
@@ -747,6 +804,7 @@ def phase_g16_kernels(torch, rng):
     plain_ms = _cuda_ms(lambda: ntt_fr._mul_sub_plain(x, y, z), 1)
     rows.append({
         "name": "fr_mul_sub", "route": "cuda",
+        "more_shapes": [],
         "source": "xlayer_prover_tpu_torch/csrc/fr_ntt.cu",
         "replaces": "xlayer_prover_tpu/snark/groth16.py:231",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -1159,25 +1217,38 @@ def phase_recursion(torch, engine):
     return launches, shapes, stack, root
 
 
-def check_bn254_shapes(torch, air) -> dict:
-    """poseidon_bn254_leaf_hash on the cm1 leaves of `air` and
-    poseidon_bn254_permute on its first tree level, each bit for bit
-    against its plain version and timed.  -> {kernel: {"shape", "ms",
-    "bound_ms"}}"""
+def check_bn254_shapes(torch, air, calls: dict) -> dict:
+    """poseidon_bn254_leaf_hash on the leaves of `air`'s cm1, cm3, const
+    and cm4 columns and poseidon_bn254_permute on its first tree level,
+    each bit for bit against its plain version and timed; then every
+    shape the final stage launched them at (`calls`: (kernel, shape) ->
+    launches) timed, and the two kernels' time in the stage summed from
+    them.  -> {kernel: {"shape", "ms", "bound_ms"}, "by_shape": [...]}"""
     from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
 
     cuda = torch.device("cuda")
     rate = int_mul_rate(torch)
     n, width = air.n_ext, air.cm1_width
-    leaves = torch.randint(-(1 << 63), (1 << 63) - 1, (n, width),
-                           dtype=torch.int64, device=cuda)
-    _require(_max_abs_err(pbn.leaf_hash(leaves, width),
-                          pbn._leaf_hash_plain(leaves, width)) == 0,
-             "poseidon_bn254_leaf_hash equals its plain version at the "
-             "RecursiveF cm1 leaves")
-    leaf_ms = _cuda_ms(lambda: pbn.leaf_hash(leaves, width), 3)
+
+    def rand(shape):
+        return torch.randint(-(1 << 63), (1 << 63) - 1, shape,
+                             dtype=torch.int64, device=cuda)
+
+    leaf_ms = {}
+    for w in dict.fromkeys((width, air.cm3_width, air.const_width,
+                            air.cm4_width)):
+        leaves = rand((n, w))
+        _require(_max_abs_err(pbn.leaf_hash(leaves, w),
+                              pbn._leaf_hash_plain(leaves, w)) == 0,
+                 f"poseidon_bn254_leaf_hash equals its plain version at "
+                 f"the RecursiveF leaves of width {w}")
+        leaf_ms[w] = _cuda_ms(lambda: pbn.leaf_hash(leaves, w), 3)
+        bound, _ = _bound_ms(bn254_leaf_work(n, w), rate)
+        print(f"kernel poseidon_bn254_leaf_hash at [{n}, {w}]: "
+              f"{leaf_ms[w]:.4f} ms (bound {bound:.4f} ms), bit-equal",
+              flush=True)
+        del leaves
     leaf_bound, _ = _bound_ms(bn254_leaf_work(n, width), rate)
-    del leaves
     groups = n // 16
     level = torch.randint(-(1 << 63), (1 << 63) - 1, (groups, 17, 4),
                           dtype=torch.int64, device=cuda)
@@ -1188,17 +1259,38 @@ def check_bn254_shapes(torch, air) -> dict:
     perm_ms = _cuda_ms(lambda: pbn.permute(level, 17), 5)
     perm_bound, _ = _bound_ms(bn254_permute_work(groups), rate)
     del level
-    torch.cuda.empty_cache()
     print(f"kernel poseidon_bn254_leaf_hash at [{n}, {width}] (RecursiveF "
-          f"cm1 leaves): {leaf_ms:.4f} ms (bound {leaf_bound:.4f} ms), "
-          f"bit-equal; poseidon_bn254_permute at [{groups}, 17, 4] (its "
-          f"first tree level): {perm_ms:.4f} ms (bound {perm_bound:.4f} "
-          f"ms), bit-equal", flush=True)
-    return {"poseidon_bn254_leaf_hash": {"shape": [n, width], "ms": leaf_ms,
+          f"cm1 leaves): {leaf_ms[width]:.4f} ms (bound {leaf_bound:.4f} "
+          f"ms), bit-equal; poseidon_bn254_permute at [{groups}, 17, 4] "
+          f"(its first tree level): {perm_ms:.4f} ms (bound "
+          f"{perm_bound:.4f} ms), bit-equal", flush=True)
+    by_shape, total = [], 0.0
+    for (kernel, shape), launches in sorted(calls.items()):
+        x = rand(shape)
+        if kernel == "permute":
+            ms = _cuda_ms(lambda: pbn.permute(x, shape[1]), 5)
+            work = {"bytes": 2 * 32 * shape[1] * shape[0],
+                    "ops": bn254_mul32(shape[1]) * shape[0]}
+        else:
+            ms = _cuda_ms(lambda: pbn.leaf_hash(x, shape[1]), 3)
+            work = bn254_leaf_work(*shape)
+        del x
+        by_shape.append({"kernel": f"poseidon_bn254_{kernel}",
+                         "shape": list(shape), "launches": launches,
+                         "ms": ms, "bound_ms": _bound_ms(work, rate)[0]})
+        total += launches * ms
+    torch.cuda.empty_cache()
+    print("final: Poseidon-BN254 launches by shape (ms a launch, timed "
+          "again after the stage): " + json.dumps(by_shape), flush=True)
+    print(f"final: Poseidon-BN254 kernel time in the stage, summed by "
+          f"shape: {total:.3f} ms", flush=True)
+    return {"poseidon_bn254_leaf_hash": {"shape": [n, width],
+                                         "ms": leaf_ms[width],
                                          "bound_ms": leaf_bound},
             "poseidon_bn254_permute": {"shape": [groups, 17, 4],
                                        "ms": perm_ms,
-                                       "bound_ms": perm_bound}}
+                                       "bound_ms": perm_bound},
+            "by_shape": by_shape, "by_shape_total_ms": total}
 
 
 def phase_final(torch, stack, root):
@@ -1209,6 +1301,7 @@ def phase_final(torch, stack, root):
     alone, a changed public refused; launches counted from 0 over the
     RecursiveF build, its proof, the R1CS and Groth16's setup, proof and
     verification."""
+    import collections
     import filecmp
     import random
 
@@ -1222,17 +1315,40 @@ def phase_final(torch, stack, root):
         fixture = f.read()
     with open(CASCADE_RECORD) as f:
         want = [int(v) for v in json.load(f)["groth16_publics"]]
+    # the shapes of the Poseidon-BN254 launches, recorded around the
+    # wrappers (their launch counts are untouched)
+    calls = collections.Counter()
+    wrapped = {name: getattr(pbn, name) for name in ("permute", "leaf_hash")}
+
+    def recorder(name):
+        def call(x, *args):
+            if x.device.type == "cuda" and x.shape[0] > 0:
+                calls[(name, tuple(x.shape))] += 1
+            return wrapped[name](x, *args)
+        return call
+
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     timings = {}
-    t0 = time.perf_counter()
-    out = stack.finalize(root, wrap="groth16", snark=True,
-                         rng=random.Random(11), timings=timings)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
+    for name in wrapped:
+        setattr(pbn, name, recorder(name))
+    try:
+        t0 = time.perf_counter()
+        out = stack.finalize(root, wrap="groth16", snark=True,
+                             rng=random.Random(11), timings=timings)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    finally:
+        for name, fn in wrapped.items():
+            setattr(pbn, name, fn)
     launches = dict(kernels.LAUNCHES)
+    for name in wrapped:
+        _require(sum(v for (k, _), v in calls.items() if k == name)
+                 == launches[f"poseidon_bn254_{name}"],
+                 f"every poseidon_bn254_{name} launch of the stage has its "
+                 "shape recorded")
     peak = torch.cuda.max_memory_allocated()
     recf = stack._aux[("recF", root.level)]
     pk, _vk = stack._aux[("g16", root.level)]
@@ -1305,13 +1421,17 @@ def phase_final(torch, stack, root):
     print(f"final: Groth16's five MSMs {timings['g16_msm_s']:.4f} s "
           f"(g16_msm_s: four over G1, one over G2, host clock after a "
           f"synchronise)", flush=True)
-    shapes = check_bn254_shapes(torch, g)
+    shapes = check_bn254_shapes(torch, g, calls)
     print(device.smi("name,power.limit"), flush=True)
     report = {"n_bits": g.n_bits, "total_s": total_s, "timings_s": timings,
               "verify_s": verify_s, "files_verify_s": files_verify_s,
               "g16_key_bytes": key_bytes, "peak_bytes": peak,
-              "launches": launches}
+              "launches": launches,
+              "poseidon_bn254_ms_by_shape": shapes.pop("by_shape"),
+              "poseidon_bn254_ms": shapes.pop("by_shape_total_ms")}
     print("final " + json.dumps(report), flush=True)
+    with open(BN254_SHAPES, "w") as f:
+        json.dump(report["poseidon_bn254_ms_by_shape"], f)
     return launches, shapes
 
 
@@ -1366,8 +1486,8 @@ def main() -> int:
         r["at_final_shape"] = at_final.get(r["name"])
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "plain_shape", "launches_by_path", "at_recursion_shape",
-            "at_final_shape"]
+            "plain_shape", "more_shapes", "launches_by_path",
+            "at_recursion_shape", "at_final_shape"]
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(f"total_s {time.perf_counter() - t_all:.2f}", flush=True)

@@ -123,45 +123,69 @@ def test_zkevm_mini_proof_on_cuda_equals_jax_fixture(cuda_device):
 
 FR = poseidon_bn254.P
 FR_EDGES = [0, 1, FR - 1, FR, FR + 1, (1 << 256) - 1]
+# states 6 and 7: lanes mixed over the edges, and r - 1 beside 2^256 - 1
+FR_MIXED = [(FR - 1, 0, FR, (1 << 256) - 1, 1), (FR - 1, (1 << 256) - 1)]
 
 
 def _fr_states(gen, n, t):
     vals = [int.from_bytes(gen.bytes(32), "little") for _ in range(n * t)]
     for k, e in enumerate(FR_EDGES):
         vals[k * t:(k + 1) * t] = [e] * t
+    for k, cyc in enumerate(FR_MIXED, len(FR_EDGES)):
+        vals[k * t:(k + 1) * t] = [cyc[i % len(cyc)] for i in range(t)]
     return vals, torch.from_numpy(
         bn254_mont.to_words(vals)).reshape(n, t, 4)
 
 
-@pytest.mark.parametrize("t", [2, 3, 5, 9, 14, 17])
+@pytest.mark.parametrize("t", range(2, 18))
 def test_bn254_permute_kernel_matches_plain(gen, cuda_device, t):
+    """Every width, on the edge and mixed extreme states, a ragged last
+    warp (300 states, 8 a warp) included."""
     vals, states = _fr_states(gen, 300, t)
     x = states.to(cuda_device)
     before = kernels.LAUNCHES["poseidon_bn254_permute"]
     got = poseidon_bn254.permute(x, t)
     assert kernels.LAUNCHES["poseidon_bn254_permute"] == before + 1
     assert torch.equal(got, poseidon_bn254._permute_plain(x, t))
-    for k in (0, 3, 5, 7):
+    for k in (0, 2, 3, 5, 6, 7, 9):
         assert bn254_mont.from_words(got[k]) == \
             poseidon_bn254.host_permute(vals[k * t:(k + 1) * t])
     with pytest.raises(ValueError):
         poseidon_bn254.permute(x[:, :, :2].contiguous(), t)
 
 
-@pytest.mark.parametrize("width", [0, 3, 4, 5, 48, 60, 519])
+@pytest.mark.parametrize("t", [2, 5, 6, 9, 14, 17])
+def test_bn254_permute_kernel_at_each_group_size(gen, cuda_device, t):
+    """A batch too small to fill the card at 4 lanes a state runs at 8,
+    a larger one at 4, and t <= 5 at one lane: both sides of the
+    library's line, ragged, equal the plain version."""
+    few = kernels.load("poseidon_bn254").poseidon_bn254_few_states()
+    for n in (few - 3, few + 5):
+        _vals, states = _fr_states(gen, n, t)
+        x = states.to(cuda_device)
+        assert torch.equal(poseidon_bn254.permute(x, t),
+                           poseidon_bn254._permute_plain(x, t))
+
+
+@pytest.mark.parametrize("width", [0, 1, 3, 4, 5, 6, 39, 48, 51, 60, 519])
 def test_bn254_leaf_hash_kernel_matches_plain(gen, cuda_device, width):
+    """The widths of the final stage's trees (60, 39, 51, 6) and the
+    edges of the packing, on edge rows, rows of alternate 0 and 2^64 - 1
+    and seeded rows."""
     rows = gen.integers(0, 1 << 64, size=(300, width), dtype=np.uint64,
                         endpoint=False)
     if width:
         rows[:EDGES.size] = EDGES[:, None]
+        rows[EDGES.size, ::2] = 0
+        rows[EDGES.size, 1::2] = (1 << 64) - 1
     t = gl.from_u64_np(rows, cuda_device)
     before = kernels.LAUNCHES["poseidon_bn254_leaf_hash"]
     got = poseidon_bn254.leaf_hash(t, width)
     assert kernels.LAUNCHES["poseidon_bn254_leaf_hash"] == before + 1
     assert torch.equal(got, poseidon_bn254._leaf_hash_plain(t, width))
-    assert bn254_mont.from_words(got[11:13]) == [
+    assert bn254_mont.from_words(got[[2, 9, 10, 11, 12]]) == [
         poseidon_bn254.leaf_hash_host([int(v) for v in rows[k]])
-        for k in (11, 12)]
+        for k in (2, 9, 10, 11, 12)]
 
 
 def test_bn128_tree_on_cuda_equals_cpu(gen, cuda_device):

@@ -43,6 +43,9 @@ _LIBS = {
         "poseidon_bn254_leaf_hash_launch": [
             _P, _P, ctypes.c_int64, ctypes.c_int, _P, ctypes.c_int, _P,
             ctypes.c_int, ctypes.c_int, _P],
+        "poseidon_bn254_resident_warps": [ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int64, ctypes.c_int],
+        "poseidon_bn254_few_states": [],
     }),
     **{f"bn254_msm_{g}": (f"bn254_msm_{g}.cu", {
         f"bn254_msm_{g}_prepare": [_P, _P, ctypes.c_int64, ctypes.c_int,

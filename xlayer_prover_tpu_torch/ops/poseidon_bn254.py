@@ -19,6 +19,9 @@ form.  It serves the BN128 commitment scheme of the recursiveF stage
     versions for the transcript and the verifier.
   * ``kernel_table(t)``: the constants of width t in Montgomery form
     (R = 2^256) as 32-bit words, the table the kernels read.
+  * ``_permute_model`` / ``_leaf_hash_model``: the kernels' schedule step
+    by step on Python ints (a state split over a group of lanes, lazy
+    reduced dot products, the square), for the tests.
 
 The constants are a copy of the JAX package's
 ``ops/data/poseidon_bn254_constants.json`` (gzipped here, checked against
@@ -56,6 +59,13 @@ MONT_R = bn254_mont.MONT
 MONT_N0INV = (-pow(P, -1, 1 << 32)) % (1 << 32)
 MONT_R2 = MONT_R * MONT_R % P
 MASK64 = (1 << 64) - 1
+MASK32 = (1 << 32) - 1
+# lanes a state in the kernels (csrc/poseidon_bn254.cu; a CPU test reads
+# them there): 4 for a batch, 8 for one too small to give every scheduler
+# of the card a warp at 4, 1 for t <= SMALL_T
+GROUP = 4
+GROUP_FEW = 8
+SMALL_T = 5
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,6 +191,225 @@ def kernel_table(t: int) -> np.ndarray:
     words = [((v * MONT_R % P) >> (32 * k)) & 0xFFFFFFFF
              for v in vals for k in range(8)]
     return np.array(words, dtype=np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' schedule, step by step on Python ints
+# ---------------------------------------------------------------------------
+#
+# csrc/poseidon_bn254.cu over bn254.cuh's wide arithmetic: values in
+# Montgomery form (R = 2^256), canonical between steps (the S-box's x^2
+# and x^4 below 2P); a dot product's
+# terms summed exactly below 2^512 and reduced once.  Each step asserts
+# the bound that its code relies on.
+
+def _words(v: int) -> list:
+    return [(v >> (32 * k)) & MASK32 for k in range(8)]
+
+
+def _mul_wide(a: int, b: int) -> int:
+    """fr_mul_wide: a b by rows a b_i; the rows 0..i fit i + 9 words."""
+    p = 0
+    for i, bi in enumerate(_words(b)):
+        p += (a * bi) << (32 * i)
+        assert p >> (32 * (i + 9)) == 0
+    return p
+
+
+def _sqr_wide(a: int) -> int:
+    """fr_sqr_wide: the products a_i a_j (i < j) by rows, row i finding
+    word i + 8 zero, doubled; then the squares a_i^2."""
+    w = _words(a)
+    off = 0
+    for i in range(7):
+        assert off >> (32 * (i + 8)) == 0
+        off += sum(w[i] * w[j] << (32 * (i + j)) for j in range(i + 1, 8))
+    assert off >> 480 == 0
+    return 2 * off + sum(w[i] * w[i] << (64 * i) for i in range(8))
+
+
+def _canon(y: int) -> int:
+    """fr_canon: any 256-bit y -> y mod P: y - q P with q from the top
+    words, then one conditional subtraction."""
+    assert 0 <= y < 1 << 256
+    d = y - (y >> 224) // ((P >> 224) + 1) * P
+    assert 0 <= d < 2 * P
+    return d - P if d >= P else d
+
+
+def _redc_lazy(s: int, add: int = 0) -> int:
+    """fr_redc_lazy_add: S_hi + add + the CIOS reduction of S_lo (at most P),
+    S / R + add mod P but not made canonical."""
+    assert 0 <= s < 1 << 512 and 0 <= add < P
+    u = s & (MONT_R - 1)
+    for _ in range(8):
+        u = (u + (u & MASK32) * MONT_N0INV % (1 << 32) * P) >> 32
+    assert u <= P
+    return (s >> 256) + add + u
+
+
+def _redc_wide(s: int, add: int = 0) -> int:
+    """fr_redc_wide_add: S / R + add mod P for S < 2^512 and a canonical
+    add, made canonical."""
+    return _canon(_redc_lazy(s, add))
+
+
+def _sbox(x: int, c: int) -> int:
+    """x^5 + c: two squares and a product, c the last reduction's addend.
+    x^2 and x^4 stay below 2P unreduced (a square of a value below 2P has
+    S_hi < 0.76 P)."""
+    x2 = _redc_lazy(_sqr_wide(x))
+    assert x2 < 2 * P
+    x4 = _redc_lazy(_sqr_wide(x2))
+    assert x4 < 2 * P
+    return _redc_wide(_mul_wide(x4, x), c)
+
+
+def _group_sum(accs: list) -> list:
+    """The butterfly of __shfl_xor_sync over the group's lanes."""
+    d = 1
+    while d < len(accs):
+        accs = [a + accs[lane ^ d] for lane, a in enumerate(accs)]
+        assert all(a < 1 << 512 for a in accs)
+        d <<= 1
+    return accs
+
+
+def _permute_group(lanes: list, t: int, tab) -> None:
+    """permute_group: the permutation of a group's state, in place.
+    ``lanes[l]`` = [x0, slot 0, ..., slot K - 1] of group lane l (state
+    lane 1 + l + G i in slot i, 0 past t); ``tab(i)`` is constant i of
+    ``kernel_table(t)`` (Montgomery form)."""
+    g = len(lanes)
+    k = len(lanes[0]) - 1
+    nrp = N_ROUNDS_P[t - 2]
+    m0 = N_ROUNDS_F * t + nrp
+    p0, s0 = m0 + t * t, m0 + 2 * t * t
+    half = N_ROUNDS_F // 2
+
+    def elem(lane, i):
+        return 1 + lane + g * i
+
+    def read(lane, i):
+        return min(elem(lane, i), t - 1)
+
+    def full_round(cbase, mo):
+        for lane, st in enumerate(lanes):
+            st[0] = _sbox(st[0], tab(cbase) if cbase >= 0 else 0)
+            for i in range(k):
+                e = elem(lane, i)
+                y = _sbox(st[1 + i], tab(cbase + read(lane, i))
+                          if cbase >= 0 else 0)
+                st[1 + i] = y if e < t else 0
+        row0 = []
+        rows = []
+        for lane, st in enumerate(lanes):
+            acc = _mul_wide(st[0], tab(mo) if lane == 0 else 0)
+            acc += sum(_mul_wide(st[1 + i], tab(mo + read(lane, i) * t))
+                       for i in range(k))
+            row0.append(acc)
+            own = [_mul_wide(st[0], tab(mo + read(lane, i)))
+                   for i in range(k)]
+            for o in range(g):
+                for i2 in range(k):
+                    j = elem(o, i2)
+                    if j < t:
+                        v = lanes[o][1 + i2]          # __shfl_sync
+                        for i in range(k):
+                            own[i] += _mul_wide(
+                                v, tab(mo + j * t + read(lane, i)))
+            rows.append(own)
+        row0 = _group_sum(row0)
+        for lane, st in enumerate(lanes):
+            st[0] = _redc_wide(row0[lane])
+            for i in range(k):
+                st[1 + i] = _redc_wide(rows[lane][i]) \
+                    if elem(lane, i) < t else 0
+
+    for r in range(half - 1):
+        full_round((r + 1) * t, m0)
+    full_round(half * t, p0)
+    pc0 = (half + 1) * t
+    for r in range(nrp):
+        srow = s0 + (2 * t - 1) * r
+        accs, ys = [], []
+        for lane, st in enumerate(lanes):
+            acc = sum(_mul_wide(st[1 + i], tab(srow + read(lane, i)))
+                      for i in range(k))       # before the S-box is done
+            y = _sbox(st[0], tab(pc0 + r))
+            acc += _mul_wide(y, tab(srow) if lane == 0 else 0)
+            accs.append(acc)
+            ys.append(y)
+        accs = _group_sum(accs)
+        for lane, st in enumerate(lanes):
+            st[0] = _redc_wide(accs[lane])
+            for i in range(k):
+                upd = _redc_wide(_mul_wide(
+                    ys[lane], tab(srow + t + read(lane, i) - 1)), st[1 + i])
+                st[1 + i] = upd if elem(lane, i) < t else 0
+    fc0 = pc0 + nrp
+    for r in range(half - 1):
+        full_round(fc0 + r * t, m0)
+    full_round(-1, m0)
+    assert all(st[0] == lanes[0][0] for st in lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def _table_ints(t: int) -> tuple:
+    w = kernel_table(t).astype(object).reshape(-1, 8)
+    return tuple(sum(int(v) << (32 * k) for k, v in enumerate(row))
+                 for row in w)
+
+
+def _split(values: list, t: int, g: int) -> list:
+    """The group's lanes of a Montgomery-form state of width t: x0 on
+    every lane, state lane e >= 1 in slot (e - 1) // g of lane (e - 1) % g
+    (0 past t)."""
+    k = -(-(t - 1) // g)
+    return [[values[0]] + [values[e] if (e := 1 + lane + g * i) < t else 0
+                           for i in range(k)] for lane in range(g)]
+
+
+def _join(lanes: list, t: int) -> list:
+    g = len(lanes)
+    return [lanes[0][0]] + [lanes[(e - 1) % g][1 + (e - 1) // g]
+                            for e in range(1, t)]
+
+
+def _absorb_model(digest: int, chunk: list, g: int) -> int:
+    t = len(chunk) + 1
+    tab = _table_ints(t).__getitem__
+    vals = [(v + tab(e)) % P for e, v in enumerate([digest] + chunk)]
+    lanes = _split(vals, t, g)
+    _permute_group(lanes, t, tab)
+    return lanes[0][0]
+
+
+def _permute_model(state, g: int = GROUP) -> list:
+    """poseidon_bn254_permute's schedule on one state of Python ints (any
+    256-bit values; t = len(state)) over a group of g lanes; canonical
+    outputs, equal to ``host_permute``."""
+    t = len(state)
+    _params(t)
+    tab = _table_ints(t).__getitem__
+    vals = [(int(v) * MONT_R + tab(e)) % P for e, v in enumerate(state)]
+    lanes = _split(vals, t, g)
+    _permute_group(lanes, t, tab)
+    return [v * pow(MONT_R, -1, P) % P for v in _join(lanes, t)]
+
+
+def _leaf_hash_model(row, g: int = GROUP) -> int:
+    """poseidon_bn254_leaf_hash's schedule on one row of Goldilocks words:
+    16 packed Fr a t = 17 chunk, the tail at t = b + 1, the digest in x0."""
+    if len(row) <= 4:
+        return leaf_hash_host(row)
+    packed = [v * MONT_R % P for v in pack_row(row)]
+    n_full = (len(packed) - 1) // ARITY
+    digest = 0
+    for ch in range(n_full + 1):
+        digest = _absorb_model(digest, packed[ch * ARITY:(ch + 1) * ARITY],
+                               g)
+    return digest * pow(MONT_R, -1, P) % P
 
 
 # ---------------------------------------------------------------------------
