@@ -106,9 +106,16 @@ points across 64 chunks; 10-bit windows) against the plain version and
 the step-by-step model ``_msm_model``, and on the 2^20 points they are
 timed on (16-bit windows, as on the main path) with all but 8,212
 scalars set to 0, each MSM's stages timed at 2^20 with CUDA events,
-fr_ntt at 2^0, 2^1, 2^5, 2^12, on the 2^21 values it is timed on and as
-a 2^20 inverse, fr_mul_sub at 2^21 with edge values; each timed at the
-devnet root's shapes (2^20 scalars and points, 2^21 values).
+fr_ntt either side of each pass boundary (2^0 .. 2^3, 2^7, 2^10 .. 2^12,
+2^22, 2^23: one, two and three passes), on edge values, the round trip,
+and at phase 8's three shapes (a 2^20 inverse, the 2^21 forward and
+inverse), each timed, with its device launches a call (counted by the
+library at each launch);
+its twiddle tables built on the card (fr_ntt_twiddles, timed) equal to
+the host-built ones, their cold build timed on the host; fr_mul_sub at
+2^21 with edge values; each timed at the devnet root's shapes (2^20
+scalars and points, 2^21 values).  Phase 8 builds its twiddle tables
+anew and prints h's split (g16_h_eval_s, g16_h_ntt_s).
 It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
 final path, this slice's main path, 0 included; ``launches_by_path`` has
 every path's) and ends with
@@ -143,7 +150,8 @@ SEED = 20261016                    # kernel inputs of phase 2
 # the kernels that every Setup.build + gen_proof of a path launches
 GL_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
 G16_KERNELS = ("bn254_msm_g1", "bn254_msm_g2", "bn254_fixed_base_g1",
-               "bn254_fixed_base_g2", "fr_ntt", "fr_mul_sub")
+               "bn254_fixed_base_g2", "fr_ntt", "fr_ntt_twiddles",
+               "fr_mul_sub")
 PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
                 "zkevm_2e13": GL_PATH_KERNELS,
                 "devnet_2e16": GL_PATH_KERNELS,
@@ -320,11 +328,14 @@ def fixed_base_work(group: str, scalars) -> dict:
             "ops": nbytes * ops["mixed"] + nonzero * 3 * ops["mul"]}
 
 
-def ntt_work(n: int) -> dict:
-    """Bytes and 32-bit multiplies of one Fr NTT of n values: (n / 2)
-    log2 n products, one read and one write of n x 32 bytes."""
-    return {"bytes": 2 * 32 * n, "ops": (n // 2) * (n.bit_length() - 1)
-            * FR_MUL}
+def ntt_work(n: int, inverse: bool = False) -> dict:
+    """Bytes and 32-bit multiplies of one Fr NTT of n values: the (n / 2)
+    log2 n butterflies less the n - 1 whose twiddle is w^0 = 1 (one a
+    group in every stage) need a product each, and the inverse's scale n
+    more; one read and one write of n x 32 bytes."""
+    products = (n // 2) * (n.bit_length() - 1) - (n - 1)
+    return {"bytes": 2 * 32 * n,
+            "ops": (products + (n if inverse else 0)) * FR_MUL}
 
 
 def mul_sub_work(n: int) -> dict:
@@ -761,36 +772,108 @@ def phase_g16_kernels(torch, rng):
         del pts, sc, idx, keep
         torch.cuda.empty_cache()
 
-    # -- the Fr NTT at the main path's shapes (the 2^21 forward it times,
-    # a 2^20 inverse) and at small sizes, and a b - c --------------------
+    # -- the Fr NTT: the twiddle tables expanded on the card against the
+    # host-built ones (the 2^21 forward's timed); the kernel bit-equal to
+    # its plain version either side of each pass boundary (2^11 values a
+    # block: one pass to 2^11, two to 2^22, three beyond), on edge values,
+    # the round trip, and at phase 8's three shapes, each timed; the
+    # device launches of one call counted by the library ---------------
     err = 0
-    for bits in (0, 1, 5, 12):
-        x = words([int.from_bytes(rng.bytes(32), "little") % r
-                   for _ in range(1 << bits)])
+    tw_rows, table_s = [], {}
+    for bits in (0, 1, 2, 3, 7, 10, 11, 12, 22, 23):
+        if bits <= 12:                         # uniform below r
+            x = words([int.from_bytes(rng.bytes(32), "little") % r
+                       for _ in range(1 << bits)])
+        else:
+            # in bulk: words 0-2 take every 64-bit value, word 3 is
+            # below 2^60, so the value is below 2^252 < r
+            x = rng.integers(-(1 << 63), 1 << 63, size=(1 << bits, 4),
+                             dtype="int64")
+            x[:, 3] &= (1 << 60) - 1
+            x = torch.from_numpy(x).to(cuda)
+        x0 = x.clone()
         for inverse in (False, True):
             err = max(err, _max_abs_err(ntt_fr.ntt(x, inverse),
                                         ntt_fr._ntt_plain(x, inverse)))
+        _require(torch.equal(ntt_fr.ntt(ntt_fr.ntt(x), inverse=True), x)
+                 and torch.equal(x, x0), f"fr_ntt round trip at 2^{bits}, "
+                 "its input untouched")
+        ntt_fr._plain_twiddles.cache_clear()
+    for v in (0, 1, r - 1, r - 2, None):
+        x = (words([0, 1, r - 1, r - 2]).repeat(1 << 10, 1) if v is None
+             else words([v]).expand(1 << 12, 4).contiguous())
+        for inverse in (False, True):
+            err = max(err, _max_abs_err(ntt_fr.ntt(x, inverse),
+                                        ntt_fr._ntt_plain(x, inverse)))
+    for bits, inverse in ((20, True), (21, False), (21, True)):
+        ntt_fr._kernel_twiddles.cache_clear()
+        ntt_fr._host_twiddle_parts.cache_clear()
+        t0 = time.perf_counter()
+        table = ntt_fr._kernel_twiddles(bits, inverse, cuda)
+        torch.cuda.synchronize()
+        table_s[f"2^{bits}{' inverse' if inverse else ''}"] = \
+            time.perf_counter() - t0
+        want = words(v * bn254_mont.MONT % r
+                     for v in ntt_fr._powers(bits, inverse))
+        _require(torch.equal(table, want), f"the 2^{bits} twiddle table "
+                 "built on the card equals the host-built one")
+        if (bits, inverse) == (21, False):
+            lo, hi = (words(p) for p in ntt_fr._host_twiddle_parts(
+                bits, inverse))
+            ref, plain_ms = _timed(torch, lambda: ntt_fr
+                                   ._expand_twiddles_plain(lo, hi))
+            tw_err = _max_abs_err(ntt_fr.expand_twiddles(lo, hi), ref)
+            _require(tw_err == 0, "fr_ntt_twiddles equals its plain "
+                     "version")
+            ms = _cuda_ms(lambda: ntt_fr.expand_twiddles(lo, hi), 20)
+            count = lo.shape[0] * hi.shape[0]
+            tw_rows.append({
+                "name": "fr_ntt_twiddles", "route": "cuda",
+                "more_shapes": [],
+                "source": "xlayer_prover_tpu_torch/csrc/fr_ntt.cu",
+                "replaces": "xlayer_prover_tpu/snark/groth16.py:42",
+                "max_abs_err": tw_err, "ms": ms, "plain_ms": plain_ms,
+                "bytes": 32 * (count + lo.shape[0] + hi.shape[0]),
+                "ops": count * FR_MUL, "shape": [count, 4],
+                "plain_shape": [count, 4]})
+            del lo, hi, ref
+        del table, want
+    print("fr_ntt: twiddle tables built cold (host parts and the card's "
+          "expansion, host clock after a synchronise), s: "
+          + json.dumps(table_s), flush=True)
     n = 1 << 21
     x = torch.randint(0, 1 << 62, (n, 4), dtype=torch.int64, device=cuda)
     x[:, 3] &= (1 << 60) - 1                   # below 2^252 < r
     half = x[:n // 2]
-    err = max(err, _max_abs_err(ntt_fr.ntt(half, inverse=True),
-                                ntt_fr._ntt_plain(half, True)))
-    ref, plain_ms = _timed(torch, lambda: ntt_fr._ntt_plain(x, False))
-    err = max(err, _max_abs_err(ntt_fr.ntt(x), ref))
-    del ref
+    shapes = []
+    for vals, inverse in ((half, True), (x, False), (x, True)):
+        ref, p_ms = _timed(torch, lambda: ntt_fr._ntt_plain(vals, inverse))
+        err = max(err, _max_abs_err(ntt_fr.ntt(vals, inverse), ref))
+        del ref
+        before = ntt_fr.device_launches()
+        ntt_fr.ntt(vals, inverse)
+        device_launches = ntt_fr.device_launches() - before
+        m = vals.shape[0]
+        _require(device_launches == len(ntt_fr._passes(m.bit_length() - 1))
+                 <= 3, f"fr_ntt at {m} makes one device launch a pass")
+        k_ms = _cuda_ms(lambda: ntt_fr.ntt(vals, inverse), 10)
+        bound, by = _bound_ms(ntt_work(m, inverse), int_rate)
+        shapes.append({"shape": [m, 4], "inverse": inverse, "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+                       "device_launches": device_launches})
+        print(f"kernel fr_ntt {'inverse' if inverse else 'forward'} at "
+              f"[{m}, 4]: {k_ms:.4f} ms (bound {bound:.4f} ms by {by}), "
+              f"{device_launches} device launches a call", flush=True)
     _require(err == 0, "fr_ntt equals its plain version")
-    ms = _cuda_ms(lambda: ntt_fr.ntt(x), 5)
-    inv_ms = _cuda_ms(lambda: ntt_fr.ntt(half, inverse=True), 5)
-    print(f"kernel fr_ntt inverse at [{n // 2}, 4]: {inv_ms:.4f} ms",
-          flush=True)
+    main = shapes.pop(1)
     rows.append({
         "name": "fr_ntt", "route": "cuda",
-        "more_shapes": [],
+        "more_shapes": shapes,
         "source": "xlayer_prover_tpu_torch/csrc/fr_ntt.cu",
         "replaces": "xlayer_prover_tpu/snark/groth16.py:42",
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **ntt_work(n),
-        "shape": [n, 4], "plain_shape": [n, 4]})
+        "max_abs_err": err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+        **ntt_work(n), "shape": [n, 4], "plain_shape": [n, 4]})
+    rows += tw_rows
     y = torch.flip(x, [0]).contiguous()
     z = torch.roll(x, 1, 0).contiguous()
     err = _max_abs_err(ntt_fr.mul_sub(x, y, z),
@@ -814,6 +897,7 @@ def phase_g16_kernels(torch, rng):
     # stay on the card and count in the later phases' peak memory
     ntt_fr._plain_twiddles.cache_clear()
     ntt_fr._bitrev.cache_clear()
+    ntt_fr._powers.cache_clear()
     torch.cuda.empty_cache()
     for row in rows:
         _bound(row, int_rate)
@@ -1306,6 +1390,7 @@ def phase_final(torch, stack, root):
     import random
 
     from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.ops import ntt_fr
     from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
     from xlayer_prover_tpu_torch.snark import snarkjs_io
     from xlayer_prover_tpu_torch.stark import verifier
@@ -1327,6 +1412,10 @@ def phase_final(torch, stack, root):
             return wrapped[name](x, *args)
         return call
 
+    # the stage builds its own Fr NTT twiddle tables, as an operator's
+    # first proof does (fr_ntt_twiddles, inside g16_h_ntt_s)
+    ntt_fr._kernel_twiddles.cache_clear()
+    ntt_fr._host_twiddle_parts.cache_clear()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1421,6 +1510,11 @@ def phase_final(torch, stack, root):
     print(f"final: Groth16's five MSMs {timings['g16_msm_s']:.4f} s "
           f"(g16_msm_s: four over G1, one over G2, host clock after a "
           f"synchronise)", flush=True)
+    print(f"final: Groth16's h {timings['g16_h_s']:.4f} s = the host's "
+          f"per-constraint evaluations {timings['g16_h_eval_s']:.4f} s "
+          f"(g16_h_eval_s) + tables, {launches['fr_ntt']} fr_ntt and "
+          f"{launches['fr_mul_sub']} fr_mul_sub {timings['g16_h_ntt_s']:.4f}"
+          f" s (g16_h_ntt_s, after a synchronise)", flush=True)
     shapes = check_bn254_shapes(torch, g, calls)
     print(device.smi("name,power.limit"), flush=True)
     report = {"n_bits": g.n_bits, "total_s": total_s, "timings_s": timings,

@@ -380,7 +380,25 @@ def test_bn254_fixed_base_kernel_matches_plain(cuda_device, group):
         assert pts == [bn254_tower.g2_mul(gen, k) for k in ks[4:6]]
 
 
-@pytest.mark.parametrize("bits", [0, 1, 2, 7, 12, 20, 21])
+# either side of each pass boundary of fr_ntt (2^11 values a block): one
+# pass up to 2^11, two up to 2^22, three beyond; 2^20 and 2^21 are the
+# Groth16 shapes
+NTT_BITS = [0, 1, 2, 3, 7, 10, 11, 12, 20, 21, 22, 23]
+
+
+def _device_kernels(fn) -> list:
+    """Names of the device kernels that one call of fn launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("bits", NTT_BITS)
 def test_fr_ntt_kernel_matches_plain(cuda_device, bits):
     import random
 
@@ -390,12 +408,67 @@ def test_fr_ntt_kernel_matches_plain(cuda_device, bits):
     vals = [rng.randrange(bn254.R) for _ in range(1 << bits)]
     vals[0] = bn254.R - 1
     x = _words(vals, cuda_device)
+    x0 = x.clone()
     for inverse in (False, True):
         before = kernels.LAUNCHES["fr_ntt"]
         got = ntt_fr.ntt(x, inverse)
         assert kernels.LAUNCHES["fr_ntt"] == before + 1
         assert torch.equal(got, ntt_fr._ntt_plain(x, inverse))
+        assert torch.equal(x, x0)                    # vals is never written
     assert torch.equal(ntt_fr.ntt(ntt_fr.ntt(x), inverse=True), x)
+
+
+@pytest.mark.parametrize("bits", [5, 11, 12, 21])
+def test_fr_ntt_kernel_edge_values(cuda_device, bits):
+    """All 0, all 1, all r - 1, all r - 2, and the four in turn."""
+    from xlayer_prover_tpu_torch.fields import bn254
+    from xlayer_prover_tpu_torch.ops import ntt_fr
+    r = bn254.R
+    edges = [0, 1, r - 1, r - 2]
+    n = 1 << bits
+    cases = [_words([v], cuda_device).expand(n, 4).contiguous()
+             for v in edges]
+    cases.append(_words(edges, cuda_device).repeat(n // 4, 1))
+    for x in cases:
+        for inverse in (False, True):
+            assert torch.equal(ntt_fr.ntt(x, inverse),
+                               ntt_fr._ntt_plain(x, inverse))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 12, 20, 21, 23])
+def test_fr_ntt_device_table_equals_host(cuda_device, bits):
+    """The table expanded on the card equals the host-built one (the
+    Montgomery form of _powers) word for word: one fr_ntt_twiddles launch
+    a host part after the first."""
+    from xlayer_prover_tpu_torch.fields import bn254
+    from xlayer_prover_tpu_torch.ops import ntt_fr
+    for inverse in (False, True):
+        ntt_fr._kernel_twiddles.cache_clear()
+        before = kernels.LAUNCHES["fr_ntt_twiddles"]
+        table = ntt_fr._kernel_twiddles(bits, inverse, cuda_device)
+        assert kernels.LAUNCHES["fr_ntt_twiddles"] == \
+            before + len(ntt_fr._twiddle_parts(bits)) - 1
+        want = bn254_mont.to_words(v * bn254_mont.MONT % bn254.R
+                                   for v in ntt_fr._powers(bits, inverse))
+        assert torch.equal(table.cpu(), torch.from_numpy(want))
+        ntt_fr._powers.cache_clear()
+    ntt_fr._kernel_twiddles.cache_clear()
+
+
+@pytest.mark.parametrize("bits", [12, 20, 21, 23])
+def test_fr_ntt_device_launches(cuda_device, bits):
+    """A warm call launches one kernel a pass and nothing else: 2 at
+    2^20 and 2^21 (22 and 23 before the redesign), 3 beyond 2^22; the
+    library's own count (ntt_fr.device_launches) agrees."""
+    from xlayer_prover_tpu_torch.ops import ntt_fr
+    x = torch.zeros((1 << bits, 4), dtype=torch.int64, device=cuda_device)
+    for inverse in (False, True):
+        ntt_fr.ntt(x, inverse)
+        before = ntt_fr.device_launches()
+        names = _device_kernels(lambda: ntt_fr.ntt(x, inverse))
+        assert len(names) == len(ntt_fr._passes(bits)) <= 3, names
+        assert all("ntt_pass" in name for name in names), names
+        assert ntt_fr.device_launches() - before == len(names)
 
 
 def test_fr_mul_sub_kernel_matches_plain(cuda_device):

@@ -64,7 +64,10 @@ _LIBS = {
     "fr_ntt": ("fr_ntt.cu", {
         "fr_ntt_launch": [_P, _P, ctypes.c_int64, ctypes.c_int, _P, _P,
                           ctypes.c_int, _P],
+        "fr_ntt_twiddles_launch": [_P, ctypes.c_int, _P, ctypes.c_int, _P,
+                                   _P],
         "fr_mul_sub_launch": [_P, _P, _P, _P, ctypes.c_int64, _P],
+        "fr_ntt_device_launches": [],
     }),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -76,7 +79,8 @@ LIB_FLAGS = {"bn254_msm_g2": ["-Xptxas", "-O1"]}
 LAUNCHES = {"gl_mul": 0, "poseidon_permute": 0, "poseidon_linear_hash": 0,
             "poseidon_bn254_permute": 0, "poseidon_bn254_leaf_hash": 0,
             "bn254_msm_g1": 0, "bn254_msm_g2": 0, "bn254_fixed_base_g1": 0,
-            "bn254_fixed_base_g2": 0, "fr_ntt": 0, "fr_mul_sub": 0}
+            "bn254_fixed_base_g2": 0, "fr_ntt": 0, "fr_ntt_twiddles": 0,
+            "fr_mul_sub": 0}
 _loaded: dict = {}
 
 

@@ -141,7 +141,8 @@ class RecursionStack:
         (``g16_setup_s``, when it runs, with its host part
         ``g16_wire_polys_s`` and the fixed-base batches
         ``g16_fixed_base_g1_s`` / ``_g2_s``), proof (``g16_prove_s``, with h's
-        ``g16_h_s``) and verification (``g16_verify_s``)."""
+        ``g16_h_s``: ``g16_h_eval_s`` on the host, ``g16_h_ntt_s`` on the
+        card) and verification (``g16_verify_s``)."""
         if wrap not in ("stark", "groth16"):
             raise ValueError(f"unknown wrap {wrap!r}")
         rp = self.lift(proof)
