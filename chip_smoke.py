@@ -4,12 +4,13 @@
     python3 chip_smoke.py            # full run: builds the kernels, proves
                                      # the 2^20-row Binary SM AIR, the
                                      # mini-ROM's zkEVM composite AIR at
-                                     # 2^13 rows, devnet batch 0 through
-                                     # the fork_9 ROM at 2^16 rows, and
-                                     # lifts and aggregates devnet batch
-                                     # proofs through the recursion stack
-                                     # at 2^18 rows, and wraps the root in
-                                     # RecursiveF and Groth16
+                                     # 2^13 rows, then the whole devnet
+                                     # cascade (four batches through the
+                                     # fork_9 ROM at 2^16 rows served by
+                                     # ProverService, four lifts and three
+                                     # aggregations at 2^18 rows,
+                                     # RecursiveF and Groth16), then the
+                                     # request path on the fib toy
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -38,51 +39,66 @@ Phases (any failure exits non-zero and prints no result line):
      from 0); the card's proof must be byte-equal to the JAX package's,
      committed as tests/data/zkevm_mini_n13_q4.proof.json, and verify.
      Phase 6 proves the same circuit with Storage and ClimbKey at 2^16;
-  6. devnet, the main path of a real batch: devnet batch 0 (a signed
-     EIP-155 transfer, ``utils/devnet.build_devnet_inputs``) through
-     ``BatchProver`` over the fork_9 ROM with the Storage and ClimbKey SMs
-     (519 committed columns) at 2^16 rows (chunk_bits 4, limb_bits 16, 4
-     queries): execute_only, setup(), prove (launches counted from 0).
-     The proof must be byte-equal to the JAX package's,
-     a7_state_devnet/batch_proof_0vdev0_nb16_q4.json, and verify; a forged
-     sRD value in the trace and a wrong new-state-root public must both be
-     refused.  Before it, phase 2's kernels are held bit for bit at its
-     shapes (the cm1 leaves, 2^17 x 519; an LDE stage, 2^16 x 519);
-  7. recursion, the main path of this slice: ``RecursionStack`` over
-     phase 6's devnet AIR and verkey (4 queries, the zkEVM chain link)
-     builds the recursive1/recursive2 pair of gate AIRs at 2^18 rows
-     (launches counted from 0), then (a) lifts the committed batch proof 0
-     to recursive1, (b) aggregates the committed recursive1_0 and
-     recursive1_1 (the chain link binds), (c) aggregates the committed
-     aggregate_01 and aggregate_23 (the non-leaf branch).  Each proof must
-     be byte-equal to its file in a7_state_devnet/ and verify (the root
-     through ``finalize(wrap="stark")``).  (d) A batch proof with a root
-     limb moved by one and a pair in the wrong order must raise ValueError
-     at witness time, and the root with a payload public changed must be
-     refused by the verifier.  Then the kernels are held bit for bit at
-     its shapes (the recursive1 cm1 leaves, 2^19 x 60; an LDE stage,
-     2^18 x 60);
-  8. the final stage, the main path of this slice:
-     ``stack.finalize(root, wrap="groth16", snark=True,
-     rng=random.Random(11))`` over phase 7's aggregate root, the JAX
-     cascade's own call, builds RecursiveF (recursive1 over the BN128
+  6. the devnet cascade, the main path of this slice
+     (``xlayer_prover_tpu_torch/cascade.py``, the port of
+     ``tools/run_a7_cascade.py --devnet 4``) in a fresh state directory,
+     build/a7_state_devnet/, launches counted from 0 over the whole run:
+     the devnet Setup (fork_9 ROM with the Storage and ClimbKey SMs, 519
+     committed columns, 2^16 rows, chunk_bits 4, limb_bits 16, 4
+     queries); four chained batches (``utils/devnet.build_devnet_inputs``:
+     batch k's pre-state from the port's own execution of batch k-1), each
+     a GEN_BATCH_PROOF request to ``ProverService(batch_prover=...)``,
+     proven in its worker thread; the recursion pair over the devnet AIR
+     and verkey (gate AIRs at 2^18 rows, the zkEVM chain link), the four
+     lifts, aggregate_01, aggregate_23 and aggregate_root of the port's own
+     proofs; verify_root; ``finalize(root, wrap="groth16", snark=True,
+     rng=random.Random(11))`` and Groth16's verify.  Every stage must run
+     (none resumed) and launch its kernels; its seconds, launches and peak
+     device memory, and each batch request's execution, STARK (by round,
+     and rows per second) and verification seconds, print as one
+     ``cascade`` line before the kernels line.
+     Then the batch checks: each batch proof byte-equal to its
+     a7_state_devnet/ file and verified, newStateRoot_k ==
+     oldStateRoot_{k+1}, the batch publics head equal to
+     PROOF_a7_cascade_devnet.json's; batch 0 executed again, whose trace
+     with a forged sRD value and whose claim of a wrong new-state-root
+     public must both be refused; phase 2's kernels held bit for bit at the
+     devnet shapes (the cm1 leaves, 2^17 x 519; an LDE stage, 2^16 x 519);
+  7. the recursion checks: recursive1_0..3, aggregate_01, aggregate_23 and
+     aggregate_root, each byte-equal to its a7_state_devnet/ file and
+     verified (the root also through ``finalize(wrap="stark")``); batch
+     proof 0 with a root limb moved by one and the pair recursive1_1 +
+     recursive1_0 (the wrong order) must raise ValueError at witness time,
+     and the root with a payload public changed must be refused by the
+     verifier; the kernels held bit for bit at the recursive1 shapes (the
+     cm1 leaves, 2^19 x 60; an LDE stage, 2^18 x 60);
+  8. the final-stage checks: RecursiveF (recursive1 over the BN128
      commitment scheme: Poseidon-BN254 arity-16 trees, TranscriptBN128)
-     over recursive2, proves it, builds the BN254 final circuit's R1CS and
-     proves that with Groth16 (setup with the fixed-base kernels, h with
-     the Fr NTT, the G1 and G2 MSMs; launches counted from 0).  The
-     RecursiveF proof must be byte-equal to the JAX package's, committed
-     as tests/data/recF_devnet_root_q4.proof.json, and verify; the proof
-     with one Fr root moved and with a payload public changed must be
-     refused.  The Groth16 proof's verification_key.json, proof.json and
-     public.json (written by the port's snarkjs_io into build/) must be
-     byte-equal to tests/data/g16_devnet_root_r11/, be accepted from the
-     files alone, and be refused with a changed public; its publics are
-     the 52 ``groth16_publics`` of PROOF_a7_cascade_devnet.json.  Then the
-     Poseidon-BN254 kernels are held bit for bit at its shapes (the cm1,
-     cm3, const and cm4 leaves and the first tree level), and each shape
-     the stage launched them at (recorded around the wrappers, written to
-     build/poseidon_bn254_final_shapes.json) is timed again: their time in
-     the stage, summed by shape.
+     over recursive2 byte-equal to the JAX package's, committed as
+     tests/data/recF_devnet_root_q4.proof.json, and verified; the proof
+     with one Fr root moved and with a payload public changed refused.
+     The Groth16 proof (setup with the fixed-base kernels, h with the Fr
+     NTT, the G1 and G2 MSMs): its verification_key.json, proof.json and
+     public.json (written by the port's snarkjs_io into build/) byte-equal
+     to tests/data/g16_devnet_root_r11/, accepted from the files alone,
+     refused with a changed public; its publics the 52
+     ``groth16_publics`` of PROOF_a7_cascade_devnet.json.  Then the
+     Poseidon-BN254 kernels held bit for bit at its shapes (the cm1, cm3,
+     const and cm4 leaves and the first tree level), and each shape the
+     stage launched them at (recorded around the wrappers, written to
+     build/poseidon_bn254_final_shapes.json) timed again: their time in
+     the stage, summed by shape;
+  9. the request path on the fib toy (n_bits 4, 2 queries), launches
+     counted from 0: ``ProverService({"batch": (air, setup)},
+     recursion_queries=4)`` serves two GEN_BATCH_PROOFs, a
+     GEN_AGGREGATED_PROOF over them (the recursion pair with no chain
+     link) byte-equal to the JAX service's,
+     tests/data/svc_agg_fib_q4.proof.json, a GEN_FINAL_PROOF (the default
+     wrap, "stark") returning the verified root, and a GEN_BATCH_PROOF
+     cancelled while it runs (the card kept busy ahead of it), which must
+     end CANCELLED at a round boundary; the next request must complete.
+     Every request must end COMPLETED, or the phase raises with its
+     error.
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
 versions (and prints how many warps of each an SM holds):
 poseidon_bn254_permute at every width t = 2..17 on 3 states fewer and 5
@@ -114,11 +130,13 @@ library at each launch);
 its twiddle tables built on the card (fr_ntt_twiddles, timed) equal to
 the host-built ones, their cold build timed on the host; fr_mul_sub at
 2^21 with edge values; each timed at the devnet root's shapes (2^20
-scalars and points, 2^21 values).  Phase 8 builds its twiddle tables
-anew and prints h's split (g16_h_eval_s, g16_h_ntt_s).
+scalars and points, 2^21 values).  The cascade's final stage builds its
+twiddle tables anew; phase 8 prints h's split (g16_h_eval_s,
+g16_h_ntt_s).
 It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
-final path, this slice's main path, 0 included; ``launches_by_path`` has
-every path's) and ends with
+cascade, this slice's main path, 0 included; ``launches_by_path`` has
+every path's, and the cascade's batch, recursion and final parts) and
+ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -152,13 +170,20 @@ GL_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
 G16_KERNELS = ("bn254_msm_g1", "bn254_msm_g2", "bn254_fixed_base_g1",
                "bn254_fixed_base_g2", "fr_ntt", "fr_ntt_twiddles",
                "fr_mul_sub")
+FINAL_KERNELS = ("poseidon_bn254_leaf_hash", "poseidon_bn254_permute",
+                 "gl_mul", *G16_KERNELS)
+# the paths driven with the launch counts set to 0 just before: each must
+# launch these kernels
 PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
                 "zkevm_2e13": GL_PATH_KERNELS,
-                "devnet_2e16": GL_PATH_KERNELS,
-                "recursion_2e18": GL_PATH_KERNELS,
-                "final_2e16": ("poseidon_bn254_leaf_hash",
-                               "poseidon_bn254_permute", "gl_mul",
-                               *G16_KERNELS)}
+                "cascade": (*GL_PATH_KERNELS, *FINAL_KERNELS[:2],
+                            *G16_KERNELS),
+                "service_fib": GL_PATH_KERNELS}
+# the cascade's parts (``cascade_groups``): each stage of a part must
+# launch these kernels
+STAGE_KERNELS = {"cascade_batches": GL_PATH_KERNELS,
+                 "cascade_recursion": GL_PATH_KERNELS,
+                 "cascade_final": FINAL_KERNELS}
 RECF_FIXTURE = os.path.join(REPO, "tests", "data",
                             "recF_devnet_root_q4.proof.json")
 G16_FIXTURE = os.path.join(REPO, "tests", "data", "g16_devnet_root_r11")
@@ -170,10 +195,16 @@ SNARKJS_FILES = ("verification_key.json", "proof.json", "public.json")
 CASCADE_RECORD = os.path.join(REPO, "PROOF_a7_cascade_devnet.json")
 ZKEVM_FIXTURE = os.path.join(REPO, "tests", "data",
                              "zkevm_mini_n13_q4.proof.json")
-DEVNET_FIXTURE = os.path.join(REPO, "a7_state_devnet",
-                              "batch_proof_0vdev0_nb16_q4.json")
 NEW_STATE_ROOT = 19                # publics[19:27]: newStateRoot limbs
 A7 = os.path.join(REPO, "a7_state_devnet")
+# the cascade's stage files and record, made anew in each run
+CASCADE_DIR = os.path.join(REPO, "build", "a7_state_devnet")
+CASCADE_OUT = os.path.join(REPO, "build", "PROOF_a7_cascade_devnet.json")
+SVC_AGG_FIXTURE = os.path.join(REPO, "tests", "data",
+                               "svc_agg_fib_q4.proof.json")
+# the fib traces (a0, b0, seed) of phase 9, those of the fixture
+# (tests/test_torch_prover_service.py holds the two equal)
+FIB_SVC_TRACES = ((1, 1, 0), (2, 3, 1))
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -1104,23 +1135,162 @@ def phase_zkevm(torch):
     return launches
 
 
-def phase_devnet(torch):
+def _byte_equal_to_a7(cas, name: str):
+    """The cascade's stage file `name` is byte-equal to its
+    a7_state_devnet/ file."""
+    import filecmp
+    _require(filecmp.cmp(cas.path(name), os.path.join(A7, f"{name}_nb16_q4"
+                                                       ".json"),
+                         shallow=False),
+             f"the {name} proof on the card is byte-equal to "
+             f"a7_state_devnet/{name}_nb16_q4.json")
+
+
+def _stage_launches(record: dict, stages) -> dict:
+    """The launches by kernel of `stages`, summed from the record."""
+    out: dict = {}
+    for stage in stages:
+        for k, v in record["launches"].get(stage, {}).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def phase_cascade(torch):
+    """The devnet cascade, the main path of this slice
+    (``cascade.DevnetCascade`` in a fresh state directory under build/),
+    launches counted from 0 over the whole run; the shape of every
+    Poseidon-BN254 launch recorded around the wrappers.  Every stage must
+    have been proven here (none resumed) and each batch, recursion and
+    final stage must have launched its kernels.  -> (launches, cascade,
+    Poseidon-BN254 calls by shape, report)"""
+    import collections
+    import shutil
+
+    from xlayer_prover_tpu_torch import cascade, device, kernels
+    from xlayer_prover_tpu_torch.ops import ntt_fr
+    from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
+
+    shutil.rmtree(CASCADE_DIR, ignore_errors=True)
+    calls = collections.Counter()
+    wrapped = {name: getattr(pbn, name) for name in ("permute", "leaf_hash")}
+
+    def recorder(name):
+        def call(x, *args):
+            if x.device.type == "cuda" and x.shape[0] > 0:
+                calls[(name, tuple(x.shape))] += 1
+            return wrapped[name](x, *args)
+        return call
+
+    # the final stage builds its own Fr NTT twiddle tables, as an
+    # operator's first proof does (fr_ntt_twiddles, inside g16_h_ntt_s)
+    ntt_fr._kernel_twiddles.cache_clear()
+    ntt_fr._host_twiddle_parts.cache_clear()
+    cas = cascade.DevnetCascade(state_dir=CASCADE_DIR, out=CASCADE_OUT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    kernels.reset_launches()
+    for name in wrapped:
+        setattr(pbn, name, recorder(name))
+    try:
+        t0 = time.perf_counter()
+        record = cas.run()
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    finally:
+        for name, fn in wrapped.items():
+            setattr(pbn, name, fn)
+    launches = dict(kernels.LAUNCHES)
+    _require(record["status"] == "complete" and record["verified"],
+             "the cascade completed and its Groth16 proof verified")
+    _require(all(isinstance(v, float) for v in record["stages"].values()),
+             "every cascade stage was proven in this run, none resumed")
+    for name in wrapped:
+        _require(sum(v for (k, _), v in calls.items() if k == name)
+                 == launches[f"poseidon_bn254_{name}"],
+                 f"every poseidon_bn254_{name} launch of the cascade has its "
+                 "shape recorded")
+    for group, stages in cascade_groups().items():
+        for stage in stages:
+            for name in STAGE_KERNELS[group]:
+                _require(record["launches"][stage].get(name, 0) > 0,
+                         f"{name} launched in the cascade's {stage} stage")
+    batch_peak = max(record["peak_bytes"][cascade.batch_stage(k)]
+                     for k in range(cascade.N_BATCHES))
+    air = cas.engine.air
+    _require(batch_peak > air.n_ext * air.cm1_width * 8,
+             "the peak device memory read after a request covers the "
+             "worker's allocations (above the cm1 LDE's bytes)")
+    report = {"card": device.smi("name,power.limit"), "total_s": total_s,
+              "inputs_s": record["inputs_s"], "stages_s": record["stages"],
+              "batches": {s: record["timings"][s]
+                          for s in cascade_groups()["cascade_batches"]},
+              "pair_s": record["pair_s"],
+              "peak_bytes": record["peak_bytes"],
+              "peak_bytes_max": max(record["peak_bytes"].values()),
+              "launches": record["launches"]}
+    print(f"cascade: {len(record['stages'])} stages in {total_s:.3f} s, "
+          f"record {os.path.relpath(CASCADE_OUT, REPO)}", flush=True)
+    return launches, cas, calls, report
+
+
+def cascade_groups() -> dict:
+    """The cascade's stages by the part of the path they drive."""
+    from xlayer_prover_tpu_torch import cascade
+    n = cascade.N_BATCHES
+    return {"cascade_batches": [cascade.batch_stage(k) for k in range(n)],
+            "cascade_recursion": [*(f"recursive1_{k}" for k in range(n)),
+                                  "aggregate_01", "aggregate_23",
+                                  "aggregate_root"],
+            "cascade_final": ["finalize_groth16"]}
+
+
+def phase_batches(torch, cas):
+    """Phase 6: the cascade's four batch proofs byte-equal to
+    a7_state_devnet/ and verified, the state roots chained, the batch
+    publics head equal to the JAX record's; batch 0's trace executed again
+    for two refusals (a forged sRD value, a wrong new-state-root public);
+    the kernels held at the devnet shapes."""
     import numpy as np
 
-    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch import cascade, device
     from xlayer_prover_tpu_torch.stark import prover, verifier
-    from xlayer_prover_tpu_torch.utils import devnet
+
+    engine = cas.engine
+    air, layout = engine.air, engine.executor.layout
+    setup = engine.setup()
+    _require(setup.const_ext.is_cuda, "the devnet setup lives on the card")
+    verify_s, proofs = {}, []
+    for k in range(cascade.N_BATCHES):
+        name = cascade.batch_stage(k)
+        _byte_equal_to_a7(cas, name)
+        proof = cas.outputs[name]
+        t0 = time.perf_counter()
+        _require(verifier.verify(air, setup.verkey, proof),
+                 f"the {name} proof verifies")
+        verify_s[name] = time.perf_counter() - t0
+        proofs.append(proof)
+    for k in range(cascade.N_BATCHES - 1):
+        _require(proofs[k].publics[NEW_STATE_ROOT:NEW_STATE_ROOT + 8]
+                 == proofs[k + 1].publics[:8],
+                 f"batch {k}'s newStateRoot is batch {k + 1}'s "
+                 "oldStateRoot")
+    with open(CASCADE_RECORD) as f:
+        want_head = json.load(f)["batch_publics_head"]
+    _require(cas.record["batch_publics_head"] == want_head,
+             "the batch publics head equals PROOF_a7_cascade_devnet.json's")
+    print("devnet: batch proofs 0-3 served by ProverService byte-equal to "
+          "a7_state_devnet/, verified, state roots chained", flush=True)
 
     t0 = time.perf_counter()
-    engine = devnet.devnet_prover()
-    inp = devnet.build_devnet_inputs(engine, 1)[0]
-    res = engine.execute_only(inp)
+    res = engine.execute_only(cas.inputs()[0])
     trace_s = time.perf_counter() - t0
-    air, layout, ctx = engine.air, engine.executor.layout, res.ctx
+    ctx = res.ctx
     _require(ctx.done and ctx.counters.steps == 6589
              and len(ctx.required.storage) > 0 and ctx.ec_memo_hits > 0,
              "devnet batch 0: 6,589 steps, storage actions, the ECRecover "
              "precalc served")
+    _require([int(p) % prover.P for p in res.publics] == proofs[0].publics,
+             "batch 0 executed again gives the served proof's publics")
     print(f"devnet: n_bits={air.n_bits} cm1={air.cm1_width} const="
           f"{air.const_width} cm2={air.cm2_width} cm3={air.cm3_width} "
           f"q_deg={air.q_deg} plookups={len(air.plookups)} permutations="
@@ -1128,35 +1298,6 @@ def phase_devnet(torch):
           f"ev_map={len(air.ev_map)} fri_steps={air.fri_steps} steps="
           f"{ctx.counters.steps} storage_actions={len(ctx.required.storage)}"
           f" trace_s={trace_s:.3f}", flush=True)
-    check_shapes(torch, air, "devnet")
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    setup = engine.setup()
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    timings = {}
-    t0 = time.perf_counter()
-    proof = engine.prove_from_trace(res.cm1_np, res.publics, timings=timings)
-    torch.cuda.synchronize()
-    prove_s = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    _require(setup.const_ext.is_cuda, "the devnet setup lives on the card")
-
-    with open(DEVNET_FIXTURE) as f:
-        _require(proof.to_json() == json.load(f)["proof"],
-                 "the devnet batch 0 proof on the card is byte-equal to "
-                 "the JAX package's")
-    t0 = time.perf_counter()
-    _require(verifier.verify(air, setup.verkey, proof),
-             "the devnet batch 0 proof verifies")
-    verify_s = time.perf_counter() - t0
-    print(f"devnet: proof byte-equal to "
-          f"{os.path.relpath(DEVNET_FIXTURE, REPO)}, verifies", flush=True)
-
     # an sRD returning a forged value (FREE and op moved together, so the
     # op accumulator still holds): only the Storage latchGet lookup sees it
     mw = layout.main.witness
@@ -1173,52 +1314,25 @@ def phase_devnet(torch):
     print("devnet: wrong new-state-root public refused: "
           + _refused(prover, verifier, setup, res.cm1_np, wrong,
                      "a wrong new state root"), flush=True)
+    check_shapes(torch, air, "devnet")
     print(device.smi("name,power.limit"), flush=True)
     report = {"n_bits": air.n_bits, "rows": air.n, "trace_s": trace_s,
-              "setup_s": setup_s, "prove_s": prove_s,
-              "rounds_s": timings, "verify_s": verify_s,
-              "rows_per_s": air.n / prove_s, "peak_bytes": peak,
-              "launches": launches}
+              "verify_s": verify_s}
     print("devnet " + json.dumps(report), flush=True)
-    return launches, engine
 
 
-def _read_a7(name: str) -> str:
-    with open(os.path.join(A7, f"{name}_nb16_q4.json")) as f:
-        return f.read()
-
-
-def phase_recursion(torch, engine):
-    """Recursion over devnet batch 0: the pair of gate AIRs, three proofs
-    byte-equal to the committed cascade, three refusals; launches counted
-    from 0 over the pair build and the three proofs."""
-    from xlayer_prover_tpu_torch import device, kernels
+def phase_recursion(torch, cas):
+    """Phase 7: the cascade's four lifts and three aggregations of its own
+    proofs byte-equal to a7_state_devnet/ and verified; three refusals;
+    the kernels held at the recursive1 shapes.  -> the shapes' rows"""
+    from xlayer_prover_tpu_torch import device
     from xlayer_prover_tpu_torch.recursion import gate_air
-    from xlayer_prover_tpu_torch.recursion.stack import (RecursionStack,
-                                                         RecursiveProof,
-                                                         zkevm_chain_spec)
+    from xlayer_prover_tpu_torch.recursion.stack import RecursiveProof
     from xlayer_prover_tpu_torch.stark import verifier
     from xlayer_prover_tpu_torch.stark.proof import StarkProof
 
-    air = engine.air
-    link, out_map = zkevm_chain_spec(air.n_publics)
-    with open(DEVNET_FIXTURE) as f:
-        batch = StarkProof.from_json(json.load(f)["proof"])
-    committed = {name: _read_a7(name) for name in (
-        "recursive1_0", "recursive1_1", "aggregate_01", "aggregate_23",
-        "aggregate_root")}
-    loaded = {k: RecursiveProof.from_json(v) for k, v in committed.items()}
-
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    stack = RecursionStack(air, engine.setup().verkey, n_queries=4,
-                           link=link, out_map=out_map)
-    t0 = time.perf_counter()
+    stack = cas.stack
     rec1, rec2 = stack.rec1(), stack.rec2()
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     for name, eng in (("rec1", rec1), ("rec2", rec2)):
         g = eng.air
         print(f"recursion {name}: n_bits={g.n_bits} cm1={g.cm1_width} "
@@ -1226,39 +1340,23 @@ def phase_recursion(torch, engine):
               f"{g.n_publics} constraints={len(g.constraints)} ev_map="
               f"{len(g.ev_map)} fri_steps={g.fri_steps} rows_used="
               f"{eng.layout.n_rows_used} {eng.tracer.stats()}", flush=True)
-
-    proofs, timings = {}, {}
-
-    def stage(name, fn, fixture):
-        t = {}
+    stages = cascade_groups()["cascade_recursion"]
+    verify_s = {}
+    for name in stages:
+        _byte_equal_to_a7(cas, name)
         t0 = time.perf_counter()
-        rp = fn(t)
-        torch.cuda.synchronize()
-        t["total_s"] = time.perf_counter() - t0
-        _require(json.dumps(rp.to_json()) == committed[fixture],
-                 f"the {name} proof on the card is byte-equal to "
-                 f"a7_state_devnet/{fixture}_nb16_q4.json")
-        t0 = time.perf_counter()
-        _require(stack.verify(rp), f"the {name} proof verifies")
-        t["verify_s"] = time.perf_counter() - t0
-        proofs[name], timings[name] = rp, t
-        print(f"recursion {name}: byte-equal to a7_state_devnet/{fixture}"
-              f"_nb16_q4.json, verifies ({t['total_s']:.3f} s)", flush=True)
-
-    stage("lift", lambda t: stack.lift(batch, t), "recursive1_0")
-    stage("leaf_leaf", lambda t: stack.aggregate(
-        loaded["recursive1_0"], loaded["recursive1_1"], t), "aggregate_01")
-    stage("agg_agg", lambda t: stack.aggregate(
-        loaded["aggregate_01"], loaded["aggregate_23"], t), "aggregate_root")
-    launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
-    root = proofs["agg_agg"]
+        _require(stack.verify(cas.outputs[name]), f"the {name} proof "
+                 "verifies")
+        verify_s[name] = time.perf_counter() - t0
+    print("recursion: recursive1_0-3, aggregate_01, aggregate_23 and "
+          "aggregate_root from the port's own proofs byte-equal to "
+          "a7_state_devnet/, verified", flush=True)
+    root = cas.outputs["aggregate_root"]
     _require(stack.finalize(root, wrap="stark") is root,
              "finalize(wrap='stark') accepts the root")
     _require(root.proof.publics[:4] == rec2.verkey,
              "the root carries the recursive2 verkey")
 
-    # (d) refusals
     def refused_at_witness(fn, what: str) -> str:
         try:
             fn()
@@ -1266,7 +1364,7 @@ def phase_recursion(torch, engine):
             return f"ValueError ({e})"
         raise RuntimeError(f"{what} was accepted")
 
-    bad = StarkProof.from_json(batch.to_json())
+    bad = StarkProof.from_json(cas.outputs["batch_proof_0vdev0"].to_json())
     bad.roots[0][0] = (bad.roots[0][0] + 1) % gate_air.P
     print("recursion: batch proof with a root limb moved refused: "
           + refused_at_witness(lambda: stack.lift(bad),
@@ -1274,7 +1372,7 @@ def phase_recursion(torch, engine):
           flush=True)
     print("recursion: recursive1_1 + recursive1_0 (link broken) refused: "
           + refused_at_witness(lambda: stack.aggregate(
-              loaded["recursive1_1"], loaded["recursive1_0"]),
+              cas.outputs["recursive1_1"], cas.outputs["recursive1_0"]),
               "an aggregation in the wrong order"), flush=True)
     forged = RecursiveProof.from_json(root.to_json())
     forged.proof.publics[4 + NEW_STATE_ROOT] = \
@@ -1292,13 +1390,14 @@ def phase_recursion(torch, engine):
 
     shapes = check_shapes(torch, rec1.air, "recursive1")
     print(device.smi("name,power.limit"), flush=True)
-    report = {"n_bits": rec1.air.n_bits, "build_s": build_s,
-              "pair_s": stack.timings, "proofs_s": timings,
-              "peak_bytes": peak, "launches": launches,
+    report = {"n_bits": rec1.air.n_bits, "pair_s": stack.timings,
+              "proofs_s": {s: cas.record["stages"][s] for s in stages},
+              "rounds_s": {s: cas.record["timings"].get(s) for s in stages},
+              "verify_s": verify_s,
               "tracer_stats": {"rec1": rec1.tracer.stats(),
                                "rec2": rec2.tracer.stats()}}
     print("recursion " + json.dumps(report), flush=True)
-    return launches, shapes, stack, root
+    return shapes
 
 
 def check_bn254_shapes(torch, air, calls: dict) -> dict:
@@ -1377,20 +1476,16 @@ def check_bn254_shapes(torch, air, calls: dict) -> dict:
             "by_shape": by_shape, "by_shape_total_ms": total}
 
 
-def phase_final(torch, stack, root):
-    """finalize(wrap="groth16", snark=True, rng=random.Random(11)) over the
-    aggregate root, the JAX cascade's own call: RecursiveF byte-equal to
-    the JAX package's and verified, two refusals; the Groth16 proof's
-    snarkjs files byte-equal to the JAX package's, accepted from the files
-    alone, a changed public refused; launches counted from 0 over the
-    RecursiveF build, its proof, the R1CS and Groth16's setup, proof and
-    verification."""
-    import collections
+def phase_final(torch, cas, calls):
+    """Phase 8: the cascade's finalize(root, wrap="groth16", snark=True,
+    rng=random.Random(11)): RecursiveF byte-equal to the JAX package's and
+    verified, two refusals; the Groth16 proof's snarkjs files byte-equal to
+    the JAX package's, accepted from the files alone, a changed public
+    refused; the Poseidon-BN254 kernels held at the stage's shapes and
+    each recorded shape timed again.  -> the shapes' rows"""
     import filecmp
-    import random
 
-    from xlayer_prover_tpu_torch import device, kernels
-    from xlayer_prover_tpu_torch.ops import ntt_fr
+    from xlayer_prover_tpu_torch import device
     from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
     from xlayer_prover_tpu_torch.snark import snarkjs_io
     from xlayer_prover_tpu_torch.stark import verifier
@@ -1400,45 +1495,10 @@ def phase_final(torch, stack, root):
         fixture = f.read()
     with open(CASCADE_RECORD) as f:
         want = [int(v) for v in json.load(f)["groth16_publics"]]
-    # the shapes of the Poseidon-BN254 launches, recorded around the
-    # wrappers (their launch counts are untouched)
-    calls = collections.Counter()
-    wrapped = {name: getattr(pbn, name) for name in ("permute", "leaf_hash")}
-
-    def recorder(name):
-        def call(x, *args):
-            if x.device.type == "cuda" and x.shape[0] > 0:
-                calls[(name, tuple(x.shape))] += 1
-            return wrapped[name](x, *args)
-        return call
-
-    # the stage builds its own Fr NTT twiddle tables, as an operator's
-    # first proof does (fr_ntt_twiddles, inside g16_h_ntt_s)
-    ntt_fr._kernel_twiddles.cache_clear()
-    ntt_fr._host_twiddle_parts.cache_clear()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    timings = {}
-    for name in wrapped:
-        setattr(pbn, name, recorder(name))
-    try:
-        t0 = time.perf_counter()
-        out = stack.finalize(root, wrap="groth16", snark=True,
-                             rng=random.Random(11), timings=timings)
-        torch.cuda.synchronize()
-        total_s = time.perf_counter() - t0
-    finally:
-        for name, fn in wrapped.items():
-            setattr(pbn, name, fn)
-    launches = dict(kernels.LAUNCHES)
-    for name in wrapped:
-        _require(sum(v for (k, _), v in calls.items() if k == name)
-                 == launches[f"poseidon_bn254_{name}"],
-                 f"every poseidon_bn254_{name} launch of the stage has its "
-                 "shape recorded")
-    peak = torch.cuda.max_memory_allocated()
+    stack, root = cas.stack, cas.outputs["aggregate_root"]
+    out = cas.outputs["finalize_groth16"]
+    timings = cas.record["timings"]["finalize_groth16"]
+    launches = cas.record["launches"]["finalize_groth16"]
     recf = stack._aux[("recF", root.level)]
     pk, _vk = stack._aux[("g16", root.level)]
     key_bytes = sum(getattr(pk, q).numel() * 8 for q in (
@@ -1469,11 +1529,11 @@ def phase_final(torch, stack, root):
         _require(not accepted, f"{what} is refused")
         return "refused"
 
-    bad = StarkProof.from_json(fixture)
+    bad = StarkProof.from_json(proof.to_json())
     bad.roots[0][0] = (bad.roots[0][0] + 1) % pbn.P
     print("final: RecursiveF proof with its cm1 root moved refused: "
           + refused(bad, "a moved Fr root"), flush=True)
-    bad = StarkProof.from_json(fixture)
+    bad = StarkProof.from_json(proof.to_json())
     bad.publics[4 + NEW_STATE_ROOT] = \
         (bad.publics[4 + NEW_STATE_ROOT] + 1) % (2 ** 64 - 2 ** 32 + 1)
     print("final: RecursiveF proof with a payload public changed refused: "
@@ -1482,6 +1542,8 @@ def phase_final(torch, stack, root):
     _require(out["final"] == "groth16" and out["publics"] == want,
              "the Groth16 publics equal the 52 groth16_publics of "
              "PROOF_a7_cascade_devnet.json")
+    _require(cas.record["groth16_publics"] == [str(p) for p in want],
+             "the cascade record's groth16_publics equal the JAX record's")
     os.makedirs(G16_OUT, exist_ok=True)
     vk_path, proof_path, pub_path = (os.path.join(G16_OUT, f)
                                      for f in SNARKJS_FILES)
@@ -1517,16 +1579,109 @@ def phase_final(torch, stack, root):
           f" s (g16_h_ntt_s, after a synchronise)", flush=True)
     shapes = check_bn254_shapes(torch, g, calls)
     print(device.smi("name,power.limit"), flush=True)
-    report = {"n_bits": g.n_bits, "total_s": total_s, "timings_s": timings,
-              "verify_s": verify_s, "files_verify_s": files_verify_s,
-              "g16_key_bytes": key_bytes, "peak_bytes": peak,
+    report = {"n_bits": g.n_bits,
+              "total_s": cas.record["stages"]["finalize_groth16"],
+              "timings_s": timings, "verify_s": verify_s,
+              "files_verify_s": files_verify_s, "g16_key_bytes": key_bytes,
+              "peak_bytes": cas.record["peak_bytes"]["finalize_groth16"],
               "launches": launches,
               "poseidon_bn254_ms_by_shape": shapes.pop("by_shape"),
               "poseidon_bn254_ms": shapes.pop("by_shape_total_ms")}
     print("final " + json.dumps(report), flush=True)
     with open(BN254_SHAPES, "w") as f:
         json.dump(report["poseidon_bn254_ms_by_shape"], f)
-    return launches, shapes
+    return shapes
+
+
+def phase_service(torch):
+    """Phase 9: the request path on the fib toy (n_bits 4, 2 queries):
+    ``ProverService({"batch": (air, setup)}, recursion_queries=4)`` serves
+    two GEN_BATCH_PROOFs, a GEN_AGGREGATED_PROOF over them byte-equal to
+    the JAX service's (tests/data/svc_agg_fib_q4.proof.json), a
+    GEN_FINAL_PROOF (the default wrap, "stark") returning the verified
+    root, and a GEN_BATCH_PROOF cancelled while running, after which the
+    next request completes.  Launches counted from 0 over the phase."""
+    from xlayer_prover_tpu_torch import kernels
+    from xlayer_prover_tpu_torch.models.toy import fib
+    from xlayer_prover_tpu_torch.prover_service import (ProverRequest,
+                                                         ProverService,
+                                                         RequestState,
+                                                         RequestType)
+    from xlayer_prover_tpu_torch.stark import prover
+
+    air = fib.build_air(n_bits=4, n_queries=2)
+    traces = [fib.gen_trace(air, a0=a0, b0=b0, seed=seed)
+              for a0, b0, seed in FIB_SVC_TRACES]
+    with open(SVC_AGG_FIXTURE) as f:
+        fixture = f.read()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t_all = time.perf_counter()
+    setup = prover.Setup.build(air, traces[0][0])
+    svc = ProverService({"batch": (air, setup)}, recursion_queries=4)
+    times = {}
+
+    def serve(name, req_type, payload):
+        req = ProverRequest(req_type, payload)
+        t0 = time.perf_counter()
+        svc.submit(req)
+        svc.wait(req.uuid, timeout=600)
+        times[name] = time.perf_counter() - t0
+        if req.state != RequestState.COMPLETED:
+            raise RuntimeError(f"service: {name} ended {req.state.value}: "
+                               f"{req.error}")
+        return req
+
+    try:
+        proofs = [serve(f"batch_{i}", RequestType.GEN_BATCH_PROOF,
+                        {"cm1": cm1, "publics": publics}).proof
+                  for i, (_c, cm1, publics) in enumerate(traces)]
+        agg = serve("aggregate", RequestType.GEN_AGGREGATED_PROOF,
+                    {"proof1": proofs[0], "proof2": proofs[1]})
+        _require(json.dumps(agg.proof.to_json()) == fixture,
+                 "the GEN_AGGREGATED_PROOF on the card is byte-equal to the "
+                 "JAX service's (tests/data/svc_agg_fib_q4.proof.json)")
+        final = serve("final", RequestType.GEN_FINAL_PROOF,
+                      {"proof": agg.proof})
+        _require(final.proof == {"final": agg.proof},
+                 "GEN_FINAL_PROOF (wrap 'stark') returns the verified root")
+        print("service: fib GEN_BATCH_PROOF x2, GEN_AGGREGATED_PROOF "
+              "byte-equal to tests/data/svc_agg_fib_q4.proof.json, "
+              "GEN_FINAL_PROOF verified", flush=True)
+
+        # a request cancelled while it runs: the card is kept busy ahead
+        # of the proof, so the worker waits at its first pull to the host,
+        # inside round 1, while the client cancels; the proof stops at the
+        # next round boundary
+        torch.cuda._sleep(int(4e9))
+        req = ProverRequest(RequestType.GEN_BATCH_PROOF,
+                            {"cm1": traces[0][1], "publics": traces[0][2]})
+        svc.submit(req)
+        deadline = time.monotonic() + 60
+        while req.state == RequestState.PENDING \
+                and time.monotonic() < deadline:
+            time.sleep(0.001)
+        _require(req.state == RequestState.RUNNING and svc.cancel(req.uuid),
+                 "a running GEN_BATCH_PROOF is cancelled")
+        svc.wait(req.uuid, timeout=600)
+        _require(req.state == RequestState.CANCELLED
+                 and req.result.name == "CANCELLED" and req.proof is None,
+                 f"the cancelled request ends CANCELLED ({req.state.value}: "
+                 f"{req.error})")
+        serve("after_cancel", RequestType.GEN_BATCH_PROOF,
+              {"cm1": traces[1][1], "publics": traces[1][2]})
+        print("service: a running GEN_BATCH_PROOF cancelled at a round "
+              "boundary, the next request completed", flush=True)
+    finally:
+        svc.shutdown()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    rec = svc._rstack["batch"]
+    report = {"total_s": time.perf_counter() - t_all, "requests_s": times,
+              "n_bits": rec.rec1().air.n_bits, "pair_s": rec.timings,
+              "launches": launches}
+    print("service " + json.dumps(report), flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1564,24 +1719,29 @@ def main() -> int:
     by_path = {"binary_sm_2e20": phase_binary(torch, case, trace_s)}
     del case
     by_path["zkevm_2e13"] = phase_zkevm(torch)
-    by_path["devnet_2e16"], engine = phase_devnet(torch)
-    by_path["recursion_2e18"], at_rec1, stack, root = phase_recursion(
-        torch, engine)
-    del engine
-    by_path["final_2e16"], at_final = phase_final(torch, stack, root)
+    by_path["cascade"], cas, calls, cascade_report = phase_cascade(torch)
+    for group, stages in cascade_groups().items():
+        by_path[group] = _stage_launches(cas.record, stages)
+    phase_batches(torch, cas)
+    at_rec1 = phase_recursion(torch, cas)
+    at_final = phase_final(torch, cas, calls)
+    del cas
+    by_path["service_fib"] = phase_service(torch)
     for path, launches in by_path.items():
-        for name in PATH_KERNELS[path]:
-            _require(launches[name] > 0, f"{name} launched on the {path} "
-                     f"path")
+        for name in PATH_KERNELS.get(path, STAGE_KERNELS.get(path)):
+            _require(launches.get(name, 0) > 0, f"{name} launched on the "
+                     f"{path} path")
     for r in rows:
-        r["launches"] = by_path["final_2e16"][r["name"]]
-        r["launches_by_path"] = {p: v[r["name"]] for p, v in by_path.items()}
+        r["launches"] = by_path["cascade"][r["name"]]
+        r["launches_by_path"] = {p: v.get(r["name"], 0)
+                                 for p, v in by_path.items()}
         r["at_recursion_shape"] = at_rec1.get(r["name"])
         r["at_final_shape"] = at_final.get(r["name"])
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "plain_shape", "more_shapes", "launches_by_path",
             "at_recursion_shape", "at_final_shape"]
+    print("cascade " + json.dumps(cascade_report), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(f"total_s {time.perf_counter() - t_all:.2f}", flush=True)

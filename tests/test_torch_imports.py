@@ -57,3 +57,11 @@ def test_final_stage_modules_are_checked(module):
     its curve, NTT and file-format modules) are among the sources the
     guard above reads."""
     assert ROOT / "xlayer_prover_tpu_torch" / module in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "prover_service.py", "cascade.py", "utils/log.py", "utils/timer.py"])
+def test_request_path_modules_are_checked(module):
+    """The request path's modules (the service, the cascade, the logger
+    and the timer) are among the sources the guard above reads."""
+    assert ROOT / "xlayer_prover_tpu_torch" / module in SOURCES

@@ -225,6 +225,44 @@ def fib_inner(pkg: str):
     return air, setup, prover.gen_proof(setup, cm1, publics)
 
 
+# the two fib traces (a0, b0, seed) whose proofs the service case
+# aggregates; chip_smoke.py FIB_SVC_TRACES holds the same
+SVC_FIB_TRACES = ((1, 1, 0), (2, 3, 1))
+
+
+def svc_agg_fib_jax() -> str:
+    """The JAX package's ``ProverService({"batch": (fib air, setup)},
+    recursion_queries=4)`` answering GEN_AGGREGATED_PROOF over the proofs
+    of the two fib traces ``SVC_FIB_TRACES`` (n_bits 4, 2 queries): the
+    recursion pair with no chain link, both proofs lifted, then
+    aggregated.  -> ``json.dumps`` of the RecursiveProof's ``to_json()``,
+    the text of the service's artifact file"""
+    from xlayer_prover_tpu.models.toy import fib
+    from xlayer_prover_tpu.prover_service import (ProverRequest,
+                                                  ProverService,
+                                                  RequestState, RequestType)
+    from xlayer_prover_tpu.stark import prover
+    air = fib.build_air(n_bits=4, n_queries=2)
+    setup = None
+    proofs = []
+    for a0, b0, seed in SVC_FIB_TRACES:
+        const_np, cm1, publics = fib.gen_trace(air, a0=a0, b0=b0, seed=seed)
+        setup = setup or prover.Setup.build(air, const_np)
+        proofs.append(prover.gen_proof(setup, cm1, publics))
+    svc = ProverService({"batch": (air, setup)}, recursion_queries=4)
+    try:
+        req = ProverRequest(RequestType.GEN_AGGREGATED_PROOF,
+                            {"proof1": proofs[0], "proof2": proofs[1]})
+        svc.submit(req)
+        svc.wait(req.uuid, timeout=4 * 3600)
+        if req.state != RequestState.COMPLETED:
+            raise RuntimeError(f"GEN_AGGREGATED_PROOF {req.state}: "
+                               f"{req.error}")
+    finally:
+        svc.shutdown()
+    return json.dumps(req.proof.to_json())
+
+
 def rec1_fib_case(pkg: str, inner=None):
     """Recursive1 over the fib inner proof at its own minimal domain
     (2^13 rows, 4 queries): the gate AIR of the traced fib verifier with
@@ -344,7 +382,8 @@ CASES = {"binary_sm_n10_q4": binary_sm_case,
          "fib_bn128_n4_q2": fib_bn128_case}
 # proofs that are not one Setup + gen_proof of a case: name -> the JAX
 # package's proof JSON
-PROOFS = {"recF_devnet_root_q4": recf_devnet_root_jax}
+PROOFS = {"recF_devnet_root_q4": recf_devnet_root_jax,
+          "svc_agg_fib_q4": svc_agg_fib_jax}
 # Groth16 proofs of the JAX package: name -> (vk, proof, publics), written
 # as snarkjs files (SNARKJS_FILES) into tests/data/<name>/
 GROTH16 = {"g16_fib_bn128_r7": g16_fib_bn128_jax,

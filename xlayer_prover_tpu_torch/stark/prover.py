@@ -28,7 +28,7 @@ import torch
 
 from .. import device as dev
 from ..fields import gl, gl3
-from ..ops import ntt
+from ..ops import merkle, ntt
 from ..ops.ntt import _np_modmul, _np_pow_table
 from . import air as air_mod
 from . import fri as fri_mod
@@ -43,6 +43,12 @@ P = gl.P
 
 class LookupMissingError(ValueError):
     """A plookup's f holds values that its table t lacks."""
+
+
+class ProofCancelled(Exception):
+    """Raised between rounds when an abort_check callback fires (the
+    cooperative mid-proof cancellation the reference lacks — its
+    cancel only skips queued jobs, prover.cpp:300-349)."""
 
 
 @dataclasses.dataclass
@@ -71,6 +77,41 @@ class Setup:
         tree = scheme.merkelize(const_ext, air.const_width)
         return Setup(air=air, const_n=const_n, const_ext=const_ext,
                      const_tree=tree, verkey=scheme.root(tree), device=device)
+
+    def save(self, path: str):
+        """Persist the preprocessed const artifacts (the reference's
+        zkevmConstantsTree/bctree file slot, config.hpp:132-136): const
+        pols, their LDE, every tree level and the verkey in one npz, the
+        JAX package's layout (pulled from the device to the host)."""
+        levels = {f"level{i}": gl.to_u64_np(lv)
+                  for i, lv in enumerate(self.const_tree.levels)}
+        np.savez_compressed(
+            path, const_n=gl.to_u64_np(self.const_n),
+            const_ext=gl.to_u64_np(self.const_ext),
+            verkey=np.array(self.verkey, dtype=np.uint64),
+            n_levels=np.int64(len(self.const_tree.levels)), **levels)
+
+    @staticmethod
+    def load(path: str, air, device=None) -> "Setup":
+        """Load a ``save`` artifact (the port's or the JAX package's) onto
+        `device` (None: the GPU); shape-checked against the air.  The
+        artifact holds a GL tree, as in the JAX package."""
+        device = dev.resolve(device)
+        if get_scheme(air).name != "gl":
+            raise ValueError("constants artifacts hold GL Merkle trees")
+        with np.load(path) as z:
+            const_n_np = z["const_n"]
+            if const_n_np.shape != (air.n, air.const_width):
+                raise ValueError("constants artifact does not match this "
+                                 "air geometry")
+            levels = [gl.from_u64_np(z[f"level{i}"], device)
+                      for i in range(int(z["n_levels"]))]
+            const_ext = gl.from_u64_np(z["const_ext"], device)
+            verkey = [int(v) for v in z["verkey"]]
+        tree = merkle.MerkleTree(levels=tuple(levels), width=air.const_width)
+        return Setup(air=air, const_n=gl.from_u64_np(const_n_np, device),
+                     const_ext=const_ext, const_tree=tree, verkey=verkey,
+                     device=device)
 
 
 def _domain_x(n_bits: int, device, shift: int = 1):
@@ -351,14 +392,24 @@ def _round5_with(air, sections_ext, challenges, x_ext, phase,
 # ---------------------------------------------------------------------------
 
 def gen_proof(setup: Setup, cm1_np: np.ndarray, publics,
-              timings: dict | None = None) -> StarkProof:
+              timings: dict | None = None,
+              abort_check=None) -> StarkProof:
     """Prove the trace `cm1_np` (n, cm1_width) uint64 on `setup.device`.
 
     timings: if a dict is given, the wall seconds of each round (keys
     step1..step5, fri) are written into it.  Each round ends by pulling
     its Merkle root (or the evals) to the host, which waits for the
-    device, so the times are device times plus host work."""
+    device, so the times are device times plus host work.
+
+    abort_check: optional zero-arg callable polled at two round
+    boundaries, before step 2 and before step 3; returning True raises
+    ProofCancelled."""
     air = setup.air
+
+    def _abort_point():
+        if abort_check is not None and abort_check():
+            raise ProofCancelled("proof aborted between rounds")
+
     device = setup.device
     n, n_ext = air.n, air.n_ext
     publics = [int(p) % P for p in publics]
@@ -400,6 +451,7 @@ def gen_proof(setup: Setup, cm1_np: np.ndarray, publics,
     # ---- round 2: plookup h1/h2 ---------------------------------------
     challenges[CH_U] = transcript.get_field()
     challenges[CH_DEFVAL] = transcript.get_field()
+    _abort_point()
     cm2_n, bad_total = round2(air, setup.const_n, cm1_n,
                               _challenges_array(challenges, device),
                               publics_arr, x_n, l1_n)
@@ -417,6 +469,7 @@ def gen_proof(setup: Setup, cm1_np: np.ndarray, publics,
     # ---- round 3: grand products Z ------------------------------------
     challenges[CH_GAMMA] = transcript.get_field()
     challenges[CH_BETA] = transcript.get_field()
+    _abort_point()
     cm3_n = round3(air, setup.const_n, cm1_n, cm2_n,
                    _challenges_array(challenges, device), publics_arr, x_n,
                    l1_n)
