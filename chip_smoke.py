@@ -10,7 +10,10 @@
                                      # ProverService, four lifts and three
                                      # aggregations at 2^18 rows,
                                      # RecursiveF and Groth16), then the
-                                     # request path on the fib toy
+                                     # request path on the fib toy,
+                                     # then devnet batch 0 at 2^18 rows
+                                     # with the Keccak-F and SHA-256-F
+                                     # chains
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -99,6 +102,26 @@ Phases (any failure exits non-zero and prints no result line):
      end CANCELLED at a round boundary; the next request must complete.
      Every request must end COMPLETED, or the phase raises with its
      error.
+ 10. the chains path, devnet batch 0 at 2^18 rows
+     (``utils/devnet.DEVNET_CHAINS_GEOMETRY``: the fork_9 ROM with the
+     Storage SM and the Keccak-F and SHA-256-F chains, one gate slot of 48
+     instances each; 669 / 600 / 999 / 361 columns, 100 plookups), launches
+     counted from 0 and the peak device memory reset before the setup:
+     the setup, then one GEN_BATCH_PROOF request to
+     ``ProverService(batch_prover=...)`` that must end COMPLETED.  Held
+     against tests/data/zkevm_devnet0_n18_chains.json (the JAX package's,
+     ``tools/torch_proof_fixtures.py``): the widths and plookups, the sha256
+     of every cm1 and const column of the request's execution, the
+     executor's steps, the publics and the verkey; the proof byte-equal to
+     tests/data/zkevm_devnet0_n18_chains_q4.proof.json where that JAX
+     proof was made; it verifies, and with one evaluation or one public
+     changed it is refused.  The port's ``gates.execute`` run on the card
+     over the Keccak slot's 48 input states equals
+     ``execute_all_wires_np`` at the script's outputs; phase 2's kernels
+     held bit for bit and timed at the chains shapes (the cm1 leaves,
+     2^19 x 669; an LDE stage, 2^18 x 669).  Its seconds
+     (setup, execution, STARK by round, verification), peak memory and
+     launches print as the ``chains_2e18`` line.
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
 versions (and prints how many warps of each an SM holds):
 poseidon_bn254_permute at every width t = 2..17 on 3 states fewer and 5
@@ -134,9 +157,9 @@ scalars and points, 2^21 values).  The cascade's final stage builds its
 twiddle tables anew; phase 8 prints h's split (g16_h_eval_s,
 g16_h_ntt_s).
 It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
-cascade, this slice's main path, 0 included; ``launches_by_path`` has
-every path's, and the cascade's batch, recursion and final parts) and
-ends with
+cascade, the main path that launches every kernel, 0 included;
+``launches_by_path`` has every path's, the cascade's batch, recursion and
+final parts, and ``chains_2e18``, phase 10's) and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -178,7 +201,8 @@ PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
                 "zkevm_2e13": GL_PATH_KERNELS,
                 "cascade": (*GL_PATH_KERNELS, *FINAL_KERNELS[:2],
                             *G16_KERNELS),
-                "service_fib": GL_PATH_KERNELS}
+                "service_fib": GL_PATH_KERNELS,
+                "chains_2e18": GL_PATH_KERNELS}
 # the cascade's parts (``cascade_groups``): each stage of a part must
 # launch these kernels
 STAGE_KERNELS = {"cascade_batches": GL_PATH_KERNELS,
@@ -205,6 +229,13 @@ SVC_AGG_FIXTURE = os.path.join(REPO, "tests", "data",
 # the fib traces (a0, b0, seed) of phase 9, those of the fixture
 # (tests/test_torch_prover_service.py holds the two equal)
 FIB_SVC_TRACES = ((1, 1, 0), (2, 3, 1))
+# phase 10's JAX fixtures (tools/torch_proof_fixtures.py): the digests,
+# publics and verkey of devnet batch 0 at the 2^18 chains geometry, and
+# the JAX proof where it was made
+CHAINS_FIXTURE = os.path.join(REPO, "tests", "data",
+                              "zkevm_devnet0_n18_chains.json")
+CHAINS_PROOF = os.path.join(REPO, "tests", "data",
+                            "zkevm_devnet0_n18_chains_q4.proof.json")
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -255,6 +286,20 @@ def print_ptxas(logs: dict):
 def _require(cond: bool, what: str):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def column_digests(table) -> list:
+    """The sha256 of each column of a (rows, width) table of field
+    elements, over the column's little-endian uint64 bytes, as hex: the
+    copy of tools/torch_proof_fixtures.column_digests (a CPU test holds
+    the two equal)."""
+    import hashlib
+
+    import numpy as np
+    table = np.asarray(table)
+    return [hashlib.sha256(np.ascontiguousarray(table[:, j], dtype="<u8")
+                           .tobytes()).hexdigest()
+            for j in range(table.shape[1])]
 
 
 def poseidon_mul32() -> int:
@@ -1684,6 +1729,174 @@ def phase_service(torch):
     return launches
 
 
+def _tampered(verifier, air, verkey, proof, what: str) -> str:
+    """`proof` changed by the caller must be refused by the verifier."""
+    try:
+        ok = verifier.verify(air, verkey, proof)
+    except verifier.VerifyError as e:
+        return f"verifier raised VerifyError ({e})"
+    _require(not ok, f"{what} is refused")
+    return "verifier returned False"
+
+
+def phase_chains(torch):
+    """Phase 10: devnet batch 0 at 2^18 rows with the Keccak-F and
+    SHA-256-F chains bound (``utils/devnet.DEVNET_CHAINS_GEOMETRY``), one
+    GEN_BATCH_PROOF request to ``ProverService(batch_prover=...)``;
+    launches counted from 0 and the peak device memory reset before the
+    setup.  Held against the JAX fixture: the AIR's widths and plookups,
+    each cm1 and const column's digest, the publics, the verkey and,
+    where it was made, the proof byte for byte; the proof verifies, and
+    with one evaluation or one public changed it is refused.  The port's
+    gates.execute on the card over the Keccak slot's 48 states equals
+    execute_all_wires_np.  -> launches"""
+    import numpy as np
+
+    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.fields import gl
+    from xlayer_prover_tpu_torch.models.zkevm import (gates,
+                                                      keccak_chain_sm,
+                                                      keccak_gates)
+    from xlayer_prover_tpu_torch.prover_service import (ProverRequest,
+                                                         ProverService,
+                                                         RequestState,
+                                                         RequestType)
+    from xlayer_prover_tpu_torch.stark import verifier
+    from xlayer_prover_tpu_torch.stark.proof import StarkProof
+    from xlayer_prover_tpu_torch.utils import devnet
+
+    with open(CHAINS_FIXTURE) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    engine = devnet.devnet_prover(geometry=devnet.DEVNET_CHAINS_GEOMETRY)
+    build_s = time.perf_counter() - t0
+    air, layout = engine.air, engine.executor.layout
+    _require([air.cm1_width, air.cm2_width, air.cm3_width,
+              air.const_width] == want["widths"] == [669, 600, 999, 361]
+             and len(air.plookups) == want["n_plookups"] == 100,
+             "the 2^18 AIR's widths and plookups equal the JAX fixture's")
+    for name in ("keccak", "sha"):
+        chain = getattr(layout, name)
+        _require((chain.n_slots, chain.n_instances) == (1, 48),
+                 f"the {name} chain has 1 gate slot of 48 instances")
+    inp = devnet.build_devnet_inputs(engine, 1)[0]
+    # the request's execution, kept for the trace checks
+    executed = []
+    execute_only = engine.execute_only
+
+    def recorded(*args, **kw):
+        executed.append(execute_only(*args, **kw))
+        return executed[-1]
+
+    engine.execute_only = recorded
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    setup = engine.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    svc = ProverService(batch_prover=engine)
+    try:
+        req = ProverRequest(RequestType.GEN_BATCH_PROOF, {"input": inp})
+        t0 = time.perf_counter()
+        svc.submit(req)
+        svc.wait(req.uuid, timeout=1200)
+        request_s = time.perf_counter() - t0
+    finally:
+        svc.shutdown()
+        engine.execute_only = execute_only
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if req.state != RequestState.COMPLETED:
+        raise RuntimeError(f"chains: GEN_BATCH_PROOF ended "
+                           f"{req.state.value}: {req.error}")
+    proof, res = req.proof, executed[0]
+    print(f"chains: n_bits={air.n_bits} cm1={air.cm1_width} const="
+          f"{air.const_width} cm2={air.cm2_width} cm3={air.cm3_width} "
+          f"q_deg={air.q_deg} plookups={len(air.plookups)} permutations="
+          f"{len(air.permutations)} connections={len(air.connections)} "
+          f"constraints={len(air.constraints)} ev_map={len(air.ev_map)} "
+          f"fri_steps={air.fri_steps} steps={res.ctx.counters.steps} "
+          f"hashK={len(res.ctx.required.padding_kk)} "
+          f"hashS={len(res.ctx.required.padding_sha)}", flush=True)
+
+    t0 = time.perf_counter()
+    _require(res.ctx.counters.steps == want["executor_steps"],
+             "the executor's steps equal the JAX fixture's")
+    _require(column_digests(res.cm1_np) == want["cm1"],
+             "every cm1 column's digest equals the JAX execution's")
+    _require(column_digests(res.const_np) == want["const"],
+             "every const column's digest equals the JAX fill_fixed's")
+    _require([int(p) for p in res.publics] == want["publics"]
+             and proof.publics == [p % gl.P for p in want["publics"]],
+             "the publics equal the JAX fixture's")
+    _require([int(v) for v in setup.verkey] == want["verkey"],
+             "the verkey (const tree root) equals the JAX Setup's")
+    digest_s = time.perf_counter() - t0
+    if os.path.exists(CHAINS_PROOF):
+        with open(CHAINS_PROOF) as f:
+            _require(proof.to_json() == f.read(),
+                     "the 2^18 chains proof on the card is byte-equal to the "
+                     "JAX package's")
+        held = f"byte-equal to {os.path.relpath(CHAINS_PROOF, REPO)}"
+    else:
+        held = "no JAX proof fixture: held by digests, publics and verkey"
+    t0 = time.perf_counter()
+    _require(verifier.verify(air, setup.verkey, proof),
+             "the 2^18 chains proof verifies")
+    verify_s = time.perf_counter() - t0
+    bad = StarkProof.from_json(proof.to_json())
+    bad.evals[0][0] = (int(bad.evals[0][0]) + 1) % gl.P
+    print("chains: a tampered evaluation refused: "
+          + _tampered(verifier, air, setup.verkey, bad, "a tampered "
+                      "evaluation"), flush=True)
+    bad = StarkProof.from_json(proof.to_json())
+    bad.publics[NEW_STATE_ROOT] = (int(bad.publics[NEW_STATE_ROOT]) + 1) \
+        % gl.P
+    print("chains: a tampered public refused: "
+          + _tampered(verifier, air, setup.verkey, bad, "a tampered public"),
+          flush=True)
+
+    # gates.execute on the card over the Keccak slot's 48 input states,
+    # 32 instances a word (word 1's bits 16..31: all-zero states)
+    script = keccak_gates.build_script()
+    states = keccak_chain_sm.slot_states(list(res.ctx.required.padding_kk),
+                                         layout.keccak.n_instances)
+    packed = torch.as_tensor(keccak_gates.pack_states(states)
+                             .astype(np.int64), device="cuda")
+    out = gates.execute(script, packed)
+    _require(out.is_cuda, "gates.execute ran on the card")
+    out = out.cpu().numpy().astype(np.uint64)
+    gates_ms = _cuda_ms(lambda: gates.execute(script, packed), 3)
+    wires = gates.execute_all_wires_np(
+        script, keccak_chain_sm.slot_input(states, 0),
+        keccak_chain_sm.PACK)[script.outputs]
+    _require(np.array_equal(out[:, 0], wires & np.uint64(0xFFFFFFFF))
+             and np.array_equal(out[:, 1] & np.uint64(0xFFFF),
+                                wires >> np.uint64(32)),
+             "gates.execute on the card equals execute_all_wires_np at the "
+             "Keccak script's outputs")
+    print(f"chains: devnet batch 0 at 2^18 {held}, verifies; cm1, const, "
+          f"publics and verkey equal the JAX fixture's; gates.execute on "
+          f"the card ({gates_ms:.3f} ms) equals execute_all_wires_np",
+          flush=True)
+    shapes = check_shapes(torch, air, "chains")
+    t = req.timings
+    report = {"card": device.smi("name,power.limit"), "n_bits": air.n_bits,
+              "rows": air.n, "build_s": build_s, "setup_s": setup_s,
+              "request_s": request_s, "execute_s": t["execute_s"],
+              "stark_s": t["stark_s"], "rounds_s": t["rounds_s"],
+              "verify_s": t["verify_s"], "rows_per_s": air.n / t["stark_s"],
+              "verify_again_s": verify_s, "digest_s": digest_s,
+              "gates_execute_ms": gates_ms, "peak_bytes": peak,
+              "launches": launches, "kernel_shapes": shapes}
+    print("chains_2e18 " + json.dumps(report), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1727,6 +1940,7 @@ def main() -> int:
     at_final = phase_final(torch, cas, calls)
     del cas
     by_path["service_fib"] = phase_service(torch)
+    by_path["chains_2e18"] = phase_chains(torch)
     for path, launches in by_path.items():
         for name in PATH_KERNELS.get(path, STAGE_KERNELS.get(path)):
             _require(launches.get(name, 0) > 0, f"{name} launched on the "

@@ -65,3 +65,16 @@ def test_request_path_modules_are_checked(module):
     """The request path's modules (the service, the cascade, the logger
     and the timer) are among the sources the guard above reads."""
     assert ROOT / "xlayer_prover_tpu_torch" / module in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "ops/keccak.py", "utils/keccak.py", "models/zkevm/gates.py",
+    "models/zkevm/keccak_gates.py", "models/zkevm/sha256_gates.py",
+    "models/zkevm/gate_sm.py", "models/zkevm/padding_kk.py",
+    "models/zkevm/padding_kk_sm.py", "models/zkevm/keccak_chain_sm.py",
+    "models/zkevm/padding_sha_sm.py", "models/zkevm/sha_chain_sm.py",
+    "models/zkevm/zkevm_air.py"])
+def test_chain_modules_are_checked(module):
+    """The Keccak-F and SHA-256-F chains' modules are among the sources
+    the guard above reads."""
+    assert ROOT / "xlayer_prover_tpu_torch" / module in SOURCES

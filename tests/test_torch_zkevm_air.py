@@ -131,10 +131,44 @@ def test_storage_air_matches_jax():
                           jzkevm_air.fill_fixed(jair, jlayout))
 
 
+def chains_groups(layout):
+    """Group name -> layout of ``GROUPS`` and of the Keccak and SHA-256
+    chains: each chain's bit region, its padding SM and its gate SM."""
+    groups = {name: getattr(layout, name) for name in GROUPS
+              if getattr(layout, name, None) is not None}
+    for name, pad in (("keccak", "kk"), ("sha", "ps")):
+        chain = getattr(layout, name, None)
+        if chain is not None:
+            groups.update({name: chain, f"{name}.{pad}": getattr(chain, pad),
+                           f"{name}.gate": chain.gate})
+    return groups
+
+
+def chains_ir(air, layout):
+    """``_ir`` with the chains' column groups (``chains_groups``)."""
+    return air_ir(air, chains_groups(layout))
+
+
 @pytest.mark.parametrize("kw", [{"n_bits": 18},
                                 {"n_bits": 13, "with_keccak": True},
                                 {"n_bits": 13, "with_sha": True}],
                          ids=["n_bits18", "keccak", "sha"])
 def test_unported_state_machines_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """The Keccak-F and SHA-256-F chains, on by default from n_bits 18:
+    there the mini-ROM's composite IR equals the JAX package's; below it
+    a chain's gate slot does not fit, and the port raises the JAX
+    package's AssertionError with its message."""
+    if kw["n_bits"] == 18:
+        air, layout = zkevm_air.build(mini_rom(), n_queries=4, **kw)
+        jair, jlayout = jzkevm_air.build(jmini_rom(), n_queries=4, **kw)
+        assert layout.keccak.n_slots == layout.sha.n_slots == 1
+        ir, jir = chains_ir(air, layout), chains_ir(jair, jlayout)
+        for key in ir:
+            assert ir[key] == jir[key], key
+        return
+    with pytest.raises(AssertionError) as err:
         zkevm_air.build(mini_rom(), **kw)
+    with pytest.raises(AssertionError) as jerr:
+        jzkevm_air.build(jmini_rom(), **kw)
+    assert str(err.value) == str(jerr.value)
+    assert "needs 2^13" in str(err.value)

@@ -5,7 +5,8 @@ port's proofs against, byte for byte (``StarkProof.to_json()``).
     python tools/torch_proof_fixtures.py binary_sm_n10_q4
     python tools/torch_proof_fixtures.py g16_devnet_root_r11
 
-writes ``tests/data/<name>.proof.json``; a Groth16 case (``GROTH16``)
+writes ``tests/data/<name>.proof.json`` (``tests/data/<name>.json`` for a
+file of digests, ``DIGESTS``); a Groth16 case (``GROTH16``)
 writes the JAX package's snarkjs files ``verification_key.json``,
 ``proof.json`` and ``public.json`` into ``tests/data/<name>/``: the fib
 bn128 final circuit with random.Random(7) (``g16_fib_bn128_r7``, about
@@ -15,6 +16,13 @@ RecursiveF proof with random.Random(11) (``g16_devnet_root_r11``, about
 fixed-base and MSMs, its Python NTTs).  The JAX prover takes minutes on
 the CPU for these cases, so the fast tests read the files and the slow
 tests (``-m slow``) prove each case with the JAX package again and compare.
+Devnet batch 0 at the 2^18 chains geometry (the Keccak-F and SHA-256-F
+chains on, ``CHAINS``): ``zkevm_devnet0_n18_chains`` writes
+``tests/data/zkevm_devnet0_n18_chains.json``, the widths, plookups,
+executor steps, each cm1 and const column's sha256, the publics and the
+verkey of the JAX package's run (its Setup: minutes), and
+``zkevm_devnet0_n18_chains_q4`` the JAX proof (hours on the CPU); named
+together, they share one execution and Setup.
 The devnet batch 0 proof (``devnet_batch0_n16_q4``) is the committed
 ``a7_state_devnet/batch_proof_0vdev0_nb16_q4.json``: it is read in place
 and never rewritten, and only ``jax_proof`` proves it again.
@@ -27,6 +35,7 @@ package or the port), so both build the same trace from one definition.
 
 from __future__ import annotations
 
+import hashlib
 import importlib
 import json
 import os
@@ -189,17 +198,18 @@ def devnet_input(pkg: str):
     return inp
 
 
-def devnet_prover(pkg: str):
-    """`pkg`'s BatchProver over the fork_9 ROM with the Storage SM at the
-    devnet geometry (the port's ``utils/devnet.DEVNET_GEOMETRY``); the
-    port's proves on the CPU."""
+def devnet_prover(pkg: str, geometry=None):
+    """`pkg`'s BatchProver over the fork_9 ROM with the Storage SM at
+    `geometry` (None: the devnet geometry, the port's
+    ``utils/devnet.DEVNET_GEOMETRY``); the port's proves on the CPU."""
     from xlayer_prover_tpu_torch.utils import devnet
+    geometry = geometry or devnet.DEVNET_GEOMETRY
     if pkg != "xlayer_prover_tpu":
-        return devnet.devnet_prover(device="cpu")
+        return devnet.devnet_prover(device="cpu", geometry=geometry)
     from xlayer_prover_tpu.executor.rom import Rom
     from xlayer_prover_tpu.executor.storage_rom import StorageRom
     from xlayer_prover_tpu.prover_service import BatchProver
-    return BatchProver(Rom.load_fork(9), **devnet.DEVNET_GEOMETRY,
+    return BatchProver(Rom.load_fork(9), **geometry,
                        storage_rom=StorageRom.load_default())
 
 
@@ -210,6 +220,70 @@ def devnet_case(pkg: str):
     res = engine.execute_only(devnet_input(pkg))
     return (engine.air, engine.executor.layout, res.const_np, res.cm1_np,
             res.publics)
+
+
+def column_digests(table) -> list:
+    """The sha256 of each column of a (rows, width) table of field
+    elements, over the column's little-endian uint64 bytes, as hex.
+    chip_smoke.py keeps a copy (it cannot import this tool); a CPU test
+    holds the two equal."""
+    table = np.asarray(table)
+    return [hashlib.sha256(np.ascontiguousarray(table[:, j], dtype="<u8")
+                           .tobytes()).hexdigest()
+            for j in range(table.shape[1])]
+
+
+# devnet batch 0 at the 2^18 geometry with the Keccak-F and SHA-256-F
+# chains on (the port's ``utils/devnet.DEVNET_CHAINS_GEOMETRY``): a digest
+# file CHAINS (tests/data/<CHAINS>.json) and the JAX proof CHAINS_PROOF
+CHAINS = "zkevm_devnet0_n18_chains"
+CHAINS_PROOF = "zkevm_devnet0_n18_chains_q4"
+_CHAINS_RUN = {}
+
+
+def chains_run_jax():
+    """The JAX BatchProver at the chains geometry, its execution of devnet
+    batch 0 and its Setup, built once a process (the digest file and the
+    proof share them).  -> (engine, ExecutionResult, Setup)"""
+    if not _CHAINS_RUN:
+        from xlayer_prover_tpu_torch.utils import devnet
+        engine = devnet_prover("xlayer_prover_tpu",
+                               devnet.DEVNET_CHAINS_GEOMETRY)
+        res = engine.execute_only(devnet_input("xlayer_prover_tpu"))
+        _CHAINS_RUN["run"] = (engine, res, engine.setup())
+    return _CHAINS_RUN["run"]
+
+
+def chains_digests(air, steps, cm1, const_np, publics, verkey) -> dict:
+    """What the chains fixture holds of one execution: the widths, the
+    plookup count, the executor's steps, each cm1 and const column's
+    ``column_digests``, the publics and the verkey."""
+    return {"widths": [air.cm1_width, air.cm2_width, air.cm3_width,
+                       air.const_width],
+            "n_plookups": len(air.plookups),
+            "executor_steps": int(steps),
+            "cm1": column_digests(cm1), "const": column_digests(const_np),
+            "publics": [int(p) for p in publics],
+            "verkey": [int(v) for v in verkey]}
+
+
+def chains_fixture_jax() -> str:
+    """The chains digest file of the JAX package's run, as JSON text."""
+    engine, res, setup = chains_run_jax()
+    return json.dumps(chains_digests(
+        engine.air, res.ctx.counters.steps, res.cm1_np, setup.const_n_np,
+        res.publics, setup.verkey), indent=1)
+
+
+def chains_proof_jax() -> str:
+    """The JAX package's proof of devnet batch 0 at the chains geometry."""
+    engine, res, _setup = chains_run_jax()
+    return engine.prove_from_trace(res.cm1_np, res.publics).to_json()
+
+
+def read_chains() -> dict:
+    with open(os.path.join(DATA, f"{CHAINS}.json")) as f:
+        return json.load(f)
 
 
 def fib_inner(pkg: str):
@@ -383,7 +457,11 @@ CASES = {"binary_sm_n10_q4": binary_sm_case,
 # proofs that are not one Setup + gen_proof of a case: name -> the JAX
 # package's proof JSON
 PROOFS = {"recF_devnet_root_q4": recf_devnet_root_jax,
-          "svc_agg_fib_q4": svc_agg_fib_jax}
+          "svc_agg_fib_q4": svc_agg_fib_jax,
+          CHAINS_PROOF: chains_proof_jax}
+# JSON files of the JAX package that are not proofs: name -> its text,
+# written as tests/data/<name>.json
+DIGESTS = {CHAINS: chains_fixture_jax}
 # Groth16 proofs of the JAX package: name -> (vk, proof, publics), written
 # as snarkjs files (SNARKJS_FILES) into tests/data/<name>/
 GROTH16 = {"g16_fib_bn128_r7": g16_fib_bn128_jax,
@@ -445,11 +523,17 @@ def main(names) -> int:
     import jax
     jax.config.update("jax_platforms", "cpu")
     os.makedirs(DATA, exist_ok=True)
-    for name in names or [c for c in (*CASES, *PROOFS, *GROTH16)
+    for name in names or [c for c in (*CASES, *DIGESTS, *PROOFS, *GROTH16)
                           if c not in IN_PLACE]:
         if name in IN_PLACE:
             raise SystemExit(f"{path(name)} is read in place, never "
                              f"rewritten")
+        if name in DIGESTS:
+            out = os.path.join(DATA, f"{name}.json")
+            with open(out, "w") as f:
+                f.write(DIGESTS[name]())
+            print(f"wrote {out}", flush=True)
+            continue
         if name in GROTH16:
             write_groth16(name, snarkjs_dir(name))
             print(f"wrote {snarkjs_dir(name)}")
@@ -457,7 +541,7 @@ def main(names) -> int:
         text = jax_proof(name)
         with open(path(name), "w") as f:
             f.write(text)
-        print(f"wrote {path(name)} ({len(text)} bytes)")
+        print(f"wrote {path(name)} ({len(text)} bytes)", flush=True)
     return 0
 
 

@@ -34,13 +34,11 @@ bind operand limb tuples to the MemAlign SM blocks (mem_align_sm); Main
 arithEq1-5 rows bind (kind, operands) tuples to the Arith EC circuit
 (arith_ec_sm) — with these, every Main operation class is circuit-bound.
 
-The port's own copy of ``xlayer_prover_tpu/models/zkevm/zkevm_air.py``.
-It builds Main, Binary, Memory, Arith, PoseidonG, PaddingPG, MemAlign and
-ArithEC, and Storage and ClimbKey when a ``storage_rom`` is given, with
-every binding among them.  The Keccak and SHA-256 chains (on by default
-from n_bits 18) come with the slice of their gate kernels: asking for them
-raises ``NotImplementedError``.  The expanders run one after the other
-(they fill disjoint column ranges).
+The port's own copy of ``xlayer_prover_tpu/models/zkevm/zkevm_air.py``,
+with every state machine and binding of the JAX package's: Storage and
+ClimbKey when a ``storage_rom`` is given, the Keccak-F and SHA-256-F
+chains from n_bits 18 (one gate slot each).  The expanders run one after
+the other (they fill disjoint column ranges).
 """
 
 from __future__ import annotations
@@ -51,9 +49,9 @@ from typing import Optional
 import numpy as np
 
 from ...stark.air import AirBuilder, Const
-from . import (arith_ec_sm, arith_sm, binary_sm, climb_key_sm, main_sm_air,
-               mem_align_sm, memory_sm, padding_pg_sm, poseidon_g_sm,
-               storage_sm)
+from . import (arith_ec_sm, arith_sm, binary_sm, climb_key_sm,
+               keccak_chain_sm, main_sm_air, mem_align_sm, memory_sm,
+               padding_pg_sm, poseidon_g_sm, sha_chain_sm, storage_sm)
 
 
 @dataclasses.dataclass
@@ -63,29 +61,26 @@ class ZkevmLayout:
     memory: memory_sm.MemoryLayout
     arith: arith_sm.ArithLayout
     poseidon: poseidon_g_sm.PoseidonGLayout
-    padding_pg: padding_pg_sm.PaddingPGLayout
-    arith_ec: arith_ec_sm.ArithEcLayout
-    mem_align: Optional[mem_align_sm.MemAlignLayout] = None
     storage: Optional[storage_sm.StorageLayout] = None
     climb_key: Optional[climb_key_sm.ClimbKeyLayout] = None
+    padding_pg: Optional[padding_pg_sm.PaddingPGLayout] = None
+    keccak: Optional[keccak_chain_sm.KeccakChainLayout] = None
+    sha: Optional[sha_chain_sm.ShaChainLayout] = None
+    mem_align: Optional[mem_align_sm.MemAlignLayout] = None
+    arith_ec: Optional[arith_ec_sm.ArithEcLayout] = None
 
 
 def build(rom, n_bits: int = 16, chunk_bits: int = 4, limb_bits: int = 16,
           n_queries: int = 8, start_label: str = "start",
           stop_label: str = "finalizeExecution", storage_rom=None,
-          with_keccak: bool = None, with_sha: bool = None):
+          with_padding_pg: bool = True, with_keccak: bool = None,
+          with_sha: bool = None):
     # the keccak gate slot needs >153k rows (one 48-lane permutation);
     # the sha256 slot needs >186k
     if with_keccak is None:
         with_keccak = n_bits >= 18
     if with_sha is None:
         with_sha = n_bits >= 18
-    for what, asked in (("the Keccak chain", with_keccak),
-                        ("the SHA-256 chain", with_sha)):
-        if asked:
-            raise NotImplementedError(
-                f"{what} is not ported yet; build with n_bits < 18 or "
-                f"with_keccak=False, with_sha=False")
     b = AirBuilder("zkevm", n_bits, n_queries=n_queries, fri_fold_bits=3)
     main = main_sm_air.build(b, rom, n_bits, start_label, stop_label)
     binl = binary_sm.build(b, n_bits, chunk_bits)
@@ -98,7 +93,9 @@ def build(rom, n_bits: int = 16, chunk_bits: int = 4, limb_bits: int = 16,
         ckl = climb_key_sm.build(b, n_bits,
                                  range_table=main.fixed["M_RANGE"])
         storage_sm.bind(b, storl, ckl, posl)
-    ppl = padding_pg_sm.build(b, n_bits)
+    ppl = padding_pg_sm.build(b, n_bits) if with_padding_pg else None
+    kcl = keccak_chain_sm.build(b, n_bits) if with_keccak else None
+    scl = sha_chain_sm.build(b, n_bits) if with_sha else None
     # memAlign factor table needs 2112 rows
     mal = mem_align_sm.build(b, n_bits) if n_bits >= 12 else None
     ecl = arith_ec_sm.build(b, limb_bits, aril.fixed["RANGE_LIMB"])
@@ -204,32 +201,73 @@ def build(rom, n_bits: int = 16, chunk_bits: int = 4, limb_bits: int = 16,
         b.plookup(f_cols, t_cols, f_sel=mw["sWR"], t_sel=sw["latchSet"])
 
     # ---- Main -> PaddingPG (hashP chain) -----------------------------
-    # ---- Main -> PaddingPG (hashP chain) -----------------------------
-    pw = ppl.witness
-    two32 = Const(1 << 32)
-    # data access rows: (addr, start pos, byte count, value)
-    f_cols = [mw["addr"], mw["HASHPOS"], mw["hashBytes"]] \
-        + [mw[f"op{j}"] for j in range(8)]
-    t_cols = [pw["addr"], ppl.pos_expr(), pw["crLen"]] \
-        + [pw[f"crV{j}"] for j in range(8)]
-    b.plookup(f_cols, t_cols, f_sel=mw["hashP"] + mw["hashP1"],
-              t_sel=pw["crLatch"])
-    # hashPLen: (addr, length)
-    b.plookup([mw["addr"], mw["op0"]], [pw["addr"], pw["len"]],
-              f_sel=mw["hashPLen"], t_sel=pw["lastHash"])
-    # hashPDigest: (addr, curHash quads, block count) — op limb pairs
-    # recompose the 4x64-bit digest (fea2scalar packing); incCnt is
-    # the counter bump ceil((len+1)/56)
-    f_cols = [mw["addr"]] \
-        + [mw[f"op{2 * j}"] + two32 * mw[f"op{2 * j + 1}"]
-           for j in range(4)] + [mw["incCnt"]]
-    t_cols = [pw["addr"]] + [pw[f"curHash{j}"] for j in range(4)] \
-        + [pw["incCounter"]]
-    b.plookup(f_cols, t_cols, f_sel=mw["hashPDigest"],
-              t_sel=pw["lastHash"])
-    # block rows -> PoseidonG permutation instances
-    f_cols, f_sel = padding_pg_sm.poseidon_lookup_cols(ppl)
-    b.plookup(f_cols, pg_table, f_sel=f_sel, t_sel=posl.fixed["PFIRST"])
+    if ppl is not None:
+        pw = ppl.witness
+        two32 = Const(1 << 32)
+        # data access rows: (addr, start pos, byte count, value)
+        f_cols = [mw["addr"], mw["HASHPOS"], mw["hashBytes"]] \
+            + [mw[f"op{j}"] for j in range(8)]
+        t_cols = [pw["addr"], ppl.pos_expr(), pw["crLen"]] \
+            + [pw[f"crV{j}"] for j in range(8)]
+        b.plookup(f_cols, t_cols, f_sel=mw["hashP"] + mw["hashP1"],
+                  t_sel=pw["crLatch"])
+        # hashPLen: (addr, length)
+        b.plookup([mw["addr"], mw["op0"]], [pw["addr"], pw["len"]],
+                  f_sel=mw["hashPLen"], t_sel=pw["lastHash"])
+        # hashPDigest: (addr, curHash quads, block count) — op limb pairs
+        # recompose the 4x64-bit digest (fea2scalar packing); incCnt is
+        # the counter bump ceil((len+1)/56)
+        f_cols = [mw["addr"]] \
+            + [mw[f"op{2 * j}"] + two32 * mw[f"op{2 * j + 1}"]
+               for j in range(4)] + [mw["incCnt"]]
+        t_cols = [pw["addr"]] + [pw[f"curHash{j}"] for j in range(4)] \
+            + [pw["incCounter"]]
+        b.plookup(f_cols, t_cols, f_sel=mw["hashPDigest"],
+                  t_sel=pw["lastHash"])
+        # block rows -> PoseidonG permutation instances
+        f_cols, f_sel = padding_pg_sm.poseidon_lookup_cols(ppl)
+        b.plookup(f_cols, pg_table, f_sel=f_sel, t_sel=posl.fixed["PFIRST"])
+
+    # ---- Main -> PaddingKK (hashK chain) -----------------------------
+    if kcl is not None:
+        kw = kcl.kk.witness
+        two32 = Const(1 << 32)
+        f_cols = [mw["addr"], mw["HASHPOS"], mw["hashBytes"]] \
+            + [mw[f"op{j}"] for j in range(8)]
+        t_cols = [kw["addr"], kcl.kk.pos_expr(), kw["crLen"]] \
+            + [kw[f"crV{j}"] for j in range(8)]
+        b.plookup(f_cols, t_cols, f_sel=mw["hashK"] + mw["hashK1"],
+                  t_sel=kw["crLatch"])
+        b.plookup([mw["addr"], mw["op0"]], [kw["addr"], kw["len"]],
+                  f_sel=mw["hashKLen"], t_sel=kw["lastHash"])
+        # digest: op limbs are already 32-bit — direct limb match, plus
+        # the incCounter block count driving cntKeccakF
+        f_cols = [mw["addr"]] + [mw[f"op{j}"] for j in range(8)] \
+            + [mw["incCnt"]]
+        t_cols = [kw["addr"]] + [kw[f"hash{j}"] for j in range(8)] \
+            + [kw["incCounter"]]
+        b.plookup(f_cols, t_cols, f_sel=mw["hashKDigest"],
+                  t_sel=kw["lastHash"])
+
+    # ---- Main -> PaddingSha256 (hashS chain) -------------------------
+    if scl is not None:
+        sw = scl.ps.witness
+        f_cols = [mw["addr"], mw["HASHPOS"], mw["hashBytes"]] \
+            + [mw[f"op{j}"] for j in range(8)]
+        t_cols = [sw["addr"], scl.ps.pos_expr(), sw["crLen"]] \
+            + [sw[f"crV{j}"] for j in range(8)]
+        b.plookup(f_cols, t_cols, f_sel=mw["hashS"] + mw["hashS1"],
+                  t_sel=sw["crLatch"])
+        b.plookup([mw["addr"], mw["op0"]], [sw["addr"], sw["len"]],
+                  f_sel=mw["hashSLen"], t_sel=sw["lastHash"])
+        # digest: op limbs are 32-bit big-endian sha words (op_j =
+        # word_{7-j}); incCounter block count drives cntSha256F
+        f_cols = [mw["addr"]] + [mw[f"op{j}"] for j in range(8)] \
+            + [mw["incCnt"]]
+        t_cols = [sw["addr"]] + [sw[f"hash{j}"] for j in range(8)] \
+            + [sw["incCounter"]]
+        b.plookup(f_cols, t_cols, f_sel=mw["hashSDigest"],
+                  t_sel=sw["lastHash"])
 
     # ---- Main -> MemAlign --------------------------------------------
     # One t-side tuple per 32-row block at its first row: the op kind,
@@ -288,8 +326,9 @@ def build(rom, n_bits: int = 16, chunk_bits: int = 4, limb_bits: int = 16,
 
     air = b.compile()
     return air, ZkevmLayout(main=main, binary=binl, memory=meml, arith=aril,
-                            poseidon=posl, padding_pg=ppl, mem_align=mal,
-                            arith_ec=ecl, storage=storl, climb_key=ckl)
+                            poseidon=posl, storage=storl, climb_key=ckl,
+                            padding_pg=ppl, keccak=kcl, sha=scl,
+                            mem_align=mal, arith_ec=ecl)
 
 
 def fill_fixed(air, layout: ZkevmLayout) -> np.ndarray:
@@ -303,7 +342,12 @@ def fill_fixed(air, layout: ZkevmLayout) -> np.ndarray:
     if layout.storage is not None:
         storage_sm.fill_fixed(layout.storage, const_np)
         climb_key_sm.fill_fixed(layout.climb_key, const_np)
-    padding_pg_sm.fill_fixed(layout.padding_pg, const_np)
+    if layout.padding_pg is not None:
+        padding_pg_sm.fill_fixed(layout.padding_pg, const_np)
+    if layout.keccak is not None:
+        keccak_chain_sm.fill_fixed(layout.keccak, const_np)
+    if layout.sha is not None:
+        sha_chain_sm.fill_fixed(layout.sha, const_np)
     if layout.mem_align is not None:
         mem_align_sm.fill_fixed(layout.mem_align, const_np)
     arith_ec_sm.fill_fixed(layout.arith_ec, const_np)
@@ -335,6 +379,11 @@ def gen_trace(air, layout: ZkevmLayout, records, final_regs, required):
         ma_actions = [mem_align_sm.MemAlignAction(op, m0, m1, off, v)
                       for (op, m0, m1, off, v) in required.mem_align]
         mem_align_sm.expand_into(layout.mem_align, ma_actions, cm1)
+    if layout.keccak is not None:
+        keccak_chain_sm.expand_into(layout.keccak,
+                                    list(required.padding_kk), cm1)
+    if layout.sha is not None:
+        sha_chain_sm.expand_into(layout.sha, list(required.padding_sha), cm1)
     # PoseidonG absorbs the Main SM's requests, then the Storage SM's
     # hashes (whose climbs fill ClimbKey), then PaddingPG's blocks
     pg_actions = [list(r) for r in required.poseidon]
@@ -343,8 +392,9 @@ def gen_trace(air, layout: ZkevmLayout, records, final_regs, required):
                                           list(required.storage), cm1)
         pg_actions += [list(t[0]) for t in spg]
         climb_key_sm.expand_into(layout.climb_key, sck, cm1)
-    pg_actions += padding_pg_sm.expand_into(layout.padding_pg,
-                                            list(required.padding_pg), cm1)
+    if layout.padding_pg is not None:
+        pg_actions += padding_pg_sm.expand_into(
+            layout.padding_pg, list(required.padding_pg), cm1)
     poseidon_g_sm.expand_into(layout.poseidon, pg_actions, cm1)
 
     publics = main_sm_air.publics_list(layout.main, records, final_regs)

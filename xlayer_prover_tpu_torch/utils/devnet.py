@@ -324,16 +324,20 @@ DEVNET_PRIV1, DEVNET_PRIV2 = 0xA11CE, 0xB0B
 # --n-bits 16 --n-queries 4)
 DEVNET_GEOMETRY = {"n_bits": 16, "chunk_bits": 4, "limb_bits": 16,
                    "n_queries": 4, "max_steps": 1 << 15}
+# the same tool with --n-bits 18 --n-queries 4: the smallest geometry at
+# which the Keccak-F and SHA-256-F chains are on (one gate slot each)
+DEVNET_CHAINS_GEOMETRY = {"n_bits": 18, "chunk_bits": 4, "limb_bits": 16,
+                          "n_queries": 4, "max_steps": 1 << 17}
 
 
-def devnet_prover(device=None):
+def devnet_prover(device=None, geometry=None):
     """The BatchProver of the devnet batches: the fork_9 ROM with the
-    Storage SM at ``DEVNET_GEOMETRY``, proving on `device` (None: the
-    GPU)."""
+    Storage SM at `geometry` (None: ``DEVNET_GEOMETRY``), proving on
+    `device` (None: the GPU)."""
     from ..executor.rom import Rom
     from ..executor.storage_rom import StorageRom
     from ..prover_service import BatchProver
-    return BatchProver(Rom.load_fork(9), **DEVNET_GEOMETRY,
+    return BatchProver(Rom.load_fork(9), **(geometry or DEVNET_GEOMETRY),
                        storage_rom=StorageRom.load_default(), device=device)
 
 

@@ -4,68 +4,10 @@ The executor's hashK digests (``executor/main_sm.py``) need the Ethereum
 Keccak-256: Keccak-f[1600] with a 1088-bit rate and the original padding
 0x01 ... 0x80.  ``hashlib.sha3_256`` pads with 0x06 and gives other
 digests.  The JAX package calls its native C helper for this; the port
-keeps this plain version, which a test holds against that helper.
+keeps one plain version, in ``ops/keccak.py``, which a test holds against
+that helper.  This module re-exports it.
 """
 
 from __future__ import annotations
 
-RATE_BYTES = 136            # 1088-bit rate of Keccak-256
-MASK64 = (1 << 64) - 1
-
-_RC = [
-    0x0000000000000001, 0x0000000000008082, 0x800000000000808A,
-    0x8000000080008000, 0x000000000000808B, 0x0000000080000001,
-    0x8000000080008081, 0x8000000000008009, 0x000000000000008A,
-    0x0000000000000088, 0x0000000080008009, 0x000000008000000A,
-    0x000000008000808B, 0x800000000000008B, 0x8000000000008089,
-    0x8000000000008003, 0x8000000000008002, 0x8000000000000080,
-    0x000000000000800A, 0x800000008000000A, 0x8000000080008081,
-    0x8000000000008080, 0x0000000080000001, 0x8000000080008008,
-]
-
-# rotation offsets r[x][y] of the rho step
-_ROT = [
-    [0, 36, 3, 41, 18],
-    [1, 44, 10, 45, 2],
-    [62, 6, 43, 15, 61],
-    [28, 55, 25, 21, 56],
-    [27, 20, 39, 8, 14],
-]
-
-
-def _rotl(v: int, n: int) -> int:
-    return ((v << n) | (v >> (64 - n))) & MASK64 if n else v
-
-
-def keccak_f(a: list) -> list:
-    """Keccak-f[1600] on 25 lanes, lane (x, y) at index x + 5 y."""
-    for rc in _RC:
-        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20]
-             for x in range(5)]
-        d = [c[(x - 1) % 5] ^ _rotl(c[(x + 1) % 5], 1) for x in range(5)]
-        a = [a[i] ^ d[i % 5] for i in range(25)]
-        b = [0] * 25
-        for x in range(5):
-            for y in range(5):
-                b[y + 5 * ((2 * x + 3 * y) % 5)] = _rotl(a[x + 5 * y],
-                                                         _ROT[x][y])
-        a = [b[i] ^ (~b[(i % 5 + 1) % 5 + 5 * (i // 5)] & MASK64
-                     & b[(i % 5 + 2) % 5 + 5 * (i // 5)])
-             for i in range(25)]
-        a[0] ^= rc
-    return a
-
-
-def keccak256(data: bytes) -> bytes:
-    """The 32-byte Keccak-256 digest of `data`."""
-    padded = bytearray(data)
-    padded.append(0x01)
-    padded.extend(b"\x00" * (-len(padded) % RATE_BYTES))
-    padded[-1] |= 0x80
-    state = [0] * 25
-    for off in range(0, len(padded), RATE_BYTES):
-        block = padded[off:off + RATE_BYTES]
-        for i in range(RATE_BYTES // 8):
-            state[i] ^= int.from_bytes(block[8 * i:8 * i + 8], "little")
-        state = keccak_f(state)
-    return b"".join(state[i].to_bytes(8, "little") for i in range(4))
+from ..ops.keccak import keccak256  # noqa: F401
