@@ -13,7 +13,9 @@
                                      # request path on the fib toy,
                                      # then devnet batch 0 at 2^18 rows
                                      # with the Keccak-F and SHA-256-F
-                                     # chains
+                                     # chains, then the entry point
+                                     # (main.py as processes, devnet
+                                     # batch 0 served over gRPC)
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -122,6 +124,32 @@ Phases (any failure exits non-zero and prints no result line):
      2^19 x 669; an LDE stage, 2^18 x 669).  Its seconds
      (setup, execution, STARK by round, verification), peak memory and
      launches print as the ``chains_2e18`` line.
+ 11. the entry point (``xlayer_prover_tpu_torch/main.py`` and the gRPC
+     services), (a) and (b) side by side as two processes: (a)
+     ``python3 -m xlayer_prover_tpu_torch.main --prove-toy`` as a process
+     on the card, whose JSON line must say verified; (b)
+     ``main.py -c build/entry/config.json --run-services`` as a process
+     with the HashDB and executor servers and the aggregator client on
+     loopback ports, the client connected to a ``MockAggregatorServer``
+     made here: a HashDB Set / Get / GetFlushStatus round trip, devnet
+     batch 0 through ProcessStatelessBatchV2 and then ProcessBatchV2 (the
+     responses byte-equal to the JAX package's,
+     tests/data/executor_devnet0.json, the new state root the committed
+     batch proof's), GetStatus with the configured prover name, and a
+     GenStatelessBatchProof whose GetProof gives RESULT_INTERNAL_ERROR (the
+     service of ``--run-services`` has no batch prover, as in the JAX
+     package); then SIGINT, and the process must exit with 0; (c) in this
+     process, ``AggregatorClient(ProverService(batch_prover=
+     devnet.devnet_prover()))`` over loopback gRPC, launches counted from
+     0 and the peak memory reset before the setup: devnet batch 0 as
+     GenStatelessBatchProof, its GetProof RESULT_COMPLETED_OK with the
+     proof text byte-equal to a7_state_devnet/'s batch proof 0 (as the
+     cascade's stage file writes it) and verified; a second request
+     cancelled while pending (RESULT_CANCEL), an unknown id
+     (RESULT_ERROR); every launch from the service's worker thread.  The
+     request's seconds (execution, STARK, verification), the wire's own
+     seconds, the processes' start-up seconds, peak memory and launches
+     print as the ``entry`` line.
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
 versions (and prints how many warps of each an SM holds):
 poseidon_bn254_permute at every width t = 2..17 on 3 states fewer and 5
@@ -159,7 +187,8 @@ g16_h_ntt_s).
 It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
 cascade, the main path that launches every kernel, 0 included;
 ``launches_by_path`` has every path's, the cascade's batch, recursion and
-final parts, and ``chains_2e18``, phase 10's) and ends with
+final parts, ``chains_2e18``, phase 10's, and ``entry_2e16``, phase 11's (c))
+and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -202,7 +231,8 @@ PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
                 "cascade": (*GL_PATH_KERNELS, *FINAL_KERNELS[:2],
                             *G16_KERNELS),
                 "service_fib": GL_PATH_KERNELS,
-                "chains_2e18": GL_PATH_KERNELS}
+                "chains_2e18": GL_PATH_KERNELS,
+                "entry_2e16": GL_PATH_KERNELS}
 # the cascade's parts (``cascade_groups``): each stage of a part must
 # launch these kernels
 STAGE_KERNELS = {"cascade_batches": GL_PATH_KERNELS,
@@ -236,6 +266,15 @@ CHAINS_FIXTURE = os.path.join(REPO, "tests", "data",
                               "zkevm_devnet0_n18_chains.json")
 CHAINS_PROOF = os.path.join(REPO, "tests", "data",
                             "zkevm_devnet0_n18_chains_q4.proof.json")
+# phase 11: the entry point's files (config, logs) and the JAX package's
+# executor responses to devnet batch 0 (tools/torch_proof_fixtures.py)
+ENTRY_DIR = os.path.join(REPO, "build", "entry")
+EXECUTOR_FIXTURE = os.path.join(REPO, "tests", "data",
+                                "executor_devnet0.json")
+ENTRY_PROVER_NAME = "entry-smoke-prover"
+ENTRY_START_S = 300.0              # a process's start, a service's answer
+ENTRY_PROOF_S = 900.0              # GetProof's wait for the served proof
+A7_BATCH0 = os.path.join(A7, "batch_proof_0vdev0_nb16_q4.json")
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -1897,6 +1936,350 @@ def phase_chains(torch):
     return launches
 
 
+def _free_port() -> int:
+    """A loopback port free when asked (bound, read and released)."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _main_cmd(*args) -> list:
+    return [sys.executable, "-m", "xlayer_prover_tpu_torch.main", *args]
+
+
+def entry_file_mode(device: str = "cuda") -> dict:
+    """Phase 11 (a): ``main.py --prove-toy`` as a process on `device`; its
+    JSON line must say verified.  -> its seconds and its line"""
+    import subprocess
+    t0 = time.perf_counter()
+    out = subprocess.run(_main_cmd("--prove-toy", "--device", device),
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=ENTRY_START_S)
+    total_s = time.perf_counter() - t0
+    _require(out.returncode == 0, f"main.py --prove-toy exited with 0 "
+             f"(rc {out.returncode}: {out.stderr[-2000:]})")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    _require(line["verified"] is True, "main.py --prove-toy verified")
+    return {"total_s": total_s, "line": line,
+            "start_s": total_s - line["prove_s"] - line["verify_s"]}
+
+
+def _hashdb_round_trip(port: int) -> dict:
+    """Set / Get / GetFlushStatus against the HashDB server on `port`."""
+    from google.protobuf import empty_pb2
+
+    from xlayer_prover_tpu_torch.services import hashdb_service as hs
+    from xlayer_prover_tpu_torch.services.gen import hashdb_pb2 as hpb
+
+    key, value = (7, 11, 13, 17), (1 << 200) + 5
+    remote = hs.HashDBRemote("127.0.0.1", port)
+    try:
+        res = remote.set("entry", (0, 0, 0, 0), key, value)
+        got = remote.get("entry", res.new_root, key).value
+        remote.consolidate("entry")
+        status = remote._channel.unary_unary(
+            f"/{hs.SERVICE}/GetFlushStatus",
+            request_serializer=empty_pb2.Empty.SerializeToString,
+            response_deserializer=hpb.GetFlushStatusResponse.FromString)(
+                empty_pb2.Empty(), timeout=ENTRY_START_S)
+    finally:
+        remote._channel.close()
+    _require(got == value and any(res.new_root)
+             and status.last_flush_id == status.stored_flush_id == 1,
+             "the HashDB service sets, gets and flushes over the wire")
+    return {"new_root": list(res.new_root), "flush_id": status.last_flush_id}
+
+
+def _executor_round_trip(port: int) -> dict:
+    """Devnet batch 0 through ProcessStatelessBatchV2 and then
+    ProcessBatchV2 against the executor server on `port`: both responses
+    byte-equal to the JAX package's, the new state root the committed
+    batch proof's."""
+    from xlayer_prover_tpu_torch.services import executor_service as es
+    from xlayer_prover_tpu_torch.utils import devnet
+
+    with open(EXECUTOR_FIXTURE) as f:
+        want = {k: bytes.fromhex(v) for k, v in json.load(f).items()}
+    with open(A7_BATCH0) as f:
+        publics = json.loads(json.load(f)["proof"])["publics"]
+    limbs = [int(v) for v in publics[NEW_STATE_ROOT:NEW_STATE_ROOT + 8]]
+    root = sum(v << (32 * i) for i, v in enumerate(limbs)).to_bytes(32,
+                                                                    "big")
+    stateless, batch = devnet.devnet0_executor_requests()
+    process, flush, process_stateless = es.make_client(port)
+    t0 = time.perf_counter()
+    got = {"process_stateless_batch_v2": process_stateless(
+               stateless, timeout=ENTRY_START_S),
+           "process_batch_v2": process(batch, timeout=ENTRY_START_S)}
+    seconds = time.perf_counter() - t0
+    for name, resp in got.items():
+        _require(resp.SerializeToString(deterministic=True) == want[name],
+                 f"{name} of devnet batch 0 over the wire equals the JAX "
+                 "package's (tests/data/executor_devnet0.json)")
+        _require(resp.new_state_root == root, f"{name}'s new state root is "
+                 "newStateRoot of a7_state_devnet/'s batch proof 0")
+    return {"executor_s": seconds, "new_state_root": "0x" + root.hex(),
+            "steps": got["process_batch_v2"].cnt_steps}
+
+
+def _stateless_batch0_request():
+    """Devnet batch 0 as the aggregator sends it: a
+    GenStatelessBatchProofRequest (the genesis witness, the datastream)."""
+    from xlayer_prover_tpu_torch.services.gen import aggregator_pb2 as pb
+    from xlayer_prover_tpu_torch.utils import devnet
+
+    sb = devnet.devnet_stateless_batch0()
+    req = pb.GenStatelessBatchProofRequest()
+    pi = req.input.public_inputs
+    pi.witness, pi.data_stream = sb["witness"], sb["data_stream"]
+    pi.sequencer_addr = sb["sequencer_addr"]
+    pi.timestamp_limit = sb["timestamp_limit"]
+    return req
+
+
+def entry_services(out_dir: str = ENTRY_DIR) -> dict:
+    """Phase 11 (b): ``main.py --run-services`` as a process, with the
+    HashDB and executor servers and the aggregator client (connected to a
+    MockAggregatorServer made here) on loopback ports; the HashDB,
+    executor and status calls answered, a GenStatelessBatchProof failed
+    as the JAX package's ``ProverService({})`` fails it; then SIGINT, and
+    the process must exit with 0.  Its config and log go to `out_dir`.
+    -> its seconds"""
+    import signal
+    import subprocess
+
+    import grpc
+
+    from xlayer_prover_tpu_torch.services.aggregator import \
+        MockAggregatorServer
+    from xlayer_prover_tpu_torch.services.gen import aggregator_pb2 as pb
+
+    os.makedirs(out_dir, exist_ok=True)
+    server = MockAggregatorServer().start()
+    hashdb_port, executor_port = _free_port(), _free_port()
+    config = {"runHashDBServer": True, "hashDBServerPort": hashdb_port,
+              "runExecutorServer": True, "executorServerPort": executor_port,
+              "runAggregatorClient": True,
+              "aggregatorClientHost": "127.0.0.1",
+              "aggregatorClientPort": server.port,
+              "proverName": ENTRY_PROVER_NAME}
+    cfg_path = os.path.join(out_dir, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f, indent=1)
+    log = open(os.path.join(out_dir, "run_services.log"), "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(_main_cmd("-c", cfg_path, "--run-services"),
+                            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    channels = []
+    try:
+        for port in (hashdb_port, executor_port):
+            channels.append(grpc.insecure_channel(f"127.0.0.1:{port}"))
+            grpc.channel_ready_future(channels[-1]).result(
+                timeout=ENTRY_START_S)
+        _require(server.wait_connected(ENTRY_START_S),
+                 "the aggregator client of --run-services connected")
+        start_s = time.perf_counter() - t0
+        report = {"start_s": start_s, **_hashdb_round_trip(hashdb_port),
+                  **_executor_round_trip(executor_port)}
+        st = server.ask("entry-status", timeout=ENTRY_START_S,
+                        get_status_request=pb.GetStatusRequest())
+        _require(st.get_status_response.prover_name == ENTRY_PROVER_NAME,
+                 "GetStatus names the configured prover")
+        gen = server.ask("entry-gen", timeout=ENTRY_START_S,
+                         gen_stateless_batch_proof_request=(
+                             _stateless_batch0_request()))
+        _require(gen.gen_batch_proof_response.result == pb.RESULT_OK,
+                 "--run-services accepted GenStatelessBatchProof")
+        got = server.ask("entry-get", timeout=ENTRY_START_S,
+                         get_proof_request=pb.GetProofRequest(
+                             id=gen.gen_batch_proof_response.id,
+                             timeout=int(ENTRY_START_S))).get_proof_response
+        _require(got.result == pb.GetProofResponse.RESULT_INTERNAL_ERROR
+                 and "no batch prover engine configured" in got.result_string,
+                 "--run-services fails GenStatelessBatchProof as the JAX "
+                 "main.py does (ProverService({}) has no batch prover)")
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=ENTRY_START_S)
+        report["stop_s"] = time.perf_counter() - t1
+        _require(rc == 0, f"--run-services exited with 0 on SIGINT (rc {rc})")
+        report["total_s"] = time.perf_counter() - t0
+    finally:
+        for channel in channels:
+            channel.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        server.stop()
+        log.close()
+    return report
+
+
+def entry_served_proof(torch) -> tuple[dict, dict]:
+    """Phase 11 (c): devnet batch 0 served over loopback gRPC by
+    ``AggregatorClient(ProverService(batch_prover=devnet.devnet_prover()))``
+    as GenStatelessBatchProof; its GetProof must give RESULT_COMPLETED_OK
+    and the proof text of a7_state_devnet/'s batch proof 0, which
+    verifies; a second request, cancelled while pending, RESULT_CANCEL;
+    an unknown id RESULT_ERROR.  Launches counted from 0 (the setup's
+    included), each from the service's worker thread.  -> (launches,
+    report)"""
+    import threading
+
+    from xlayer_prover_tpu_torch import kernels
+    from xlayer_prover_tpu_torch.prover_service import (ProverService,
+                                                         RequestState)
+    from xlayer_prover_tpu_torch.services.aggregator import (
+        AggregatorClient, MockAggregatorServer)
+    from xlayer_prover_tpu_torch.services.gen import aggregator_pb2 as pb
+    from xlayer_prover_tpu_torch.stark import verifier
+    from xlayer_prover_tpu_torch.stark.proof import StarkProof
+    from xlayer_prover_tpu_torch.utils import devnet
+
+    req = _stateless_batch0_request()
+    with open(A7_BATCH0) as f:
+        want = f.read()
+    writers = set()
+
+    class Writers(dict):
+        """The launch counts, with the thread of every count kept."""
+
+        def __setitem__(self, key, value):
+            writers.add(threading.get_ident())
+            super().__setitem__(key, value)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counts = kernels.LAUNCHES
+    kernels.reset_launches()
+    kernels.LAUNCHES = Writers(counts)
+    server = MockAggregatorServer().start()
+    svc = client = None
+    try:
+        t0 = time.perf_counter()
+        engine = devnet.devnet_prover()
+        setup = engine.setup()
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        svc = ProverService(batch_prover=engine)
+        client = AggregatorClient(svc, "127.0.0.1", server.port,
+                                  watchdog_timeout_s=2 * ENTRY_PROOF_S)
+        client.start()
+        _require(server.wait_connected(ENTRY_START_S),
+                 "the aggregator client connected")
+        t0 = time.perf_counter()
+        ids = []
+        for k in range(2):
+            gen = server.ask(f"entry-gen-{k}", timeout=ENTRY_START_S,
+                             gen_stateless_batch_proof_request=req)
+            _require(gen.gen_batch_proof_response.result == pb.RESULT_OK,
+                     "GenStatelessBatchProof accepted")
+            ids.append(gen.gen_batch_proof_response.id)
+        _require(svc.get(ids[1]).state == RequestState.PENDING,
+                 "the second request waits behind the first")
+        cancel = server.ask("entry-cancel", timeout=ENTRY_START_S,
+                            cancel_request=pb.CancelRequest(id=ids[1]))
+        _require(cancel.cancel_response.result == pb.RESULT_OK,
+                 "the pending request is cancelled")
+        replies = {}
+        for name, uid in (("cancelled", ids[1]), ("unknown", "no-such-id")):
+            replies[name] = server.ask(
+                f"entry-get-{name}", timeout=ENTRY_START_S,
+                get_proof_request=pb.GetProofRequest(id=uid, timeout=1)
+            ).get_proof_response.result
+        _require(replies == {"cancelled": pb.GetProofResponse.RESULT_CANCEL,
+                             "unknown": pb.GetProofResponse.RESULT_ERROR},
+                 "GetProof: RESULT_CANCEL for the cancelled request, "
+                 f"RESULT_ERROR for an unknown id ({replies})")
+        got = server.ask("entry-get", timeout=ENTRY_PROOF_S + ENTRY_START_S,
+                         get_proof_request=pb.GetProofRequest(
+                             id=ids[0], timeout=int(ENTRY_PROOF_S))
+                         ).get_proof_response
+        request_s = time.perf_counter() - t0
+        preq = svc.get(ids[0])
+        _require(got.result == pb.GetProofResponse.RESULT_COMPLETED_OK,
+                 f"the served proof completed ({got.result}: "
+                 f"{got.result_string})")
+        text = got.recursive_proof
+        _require(json.dumps({"level": 0, "proof": text}) == want,
+                 "the proof served over gRPC is byte-equal to "
+                 "a7_state_devnet/batch_proof_0vdev0_nb16_q4.json")
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        t1 = time.perf_counter()
+        _require(verifier.verify(engine.air, setup.verkey,
+                                 StarkProof.from_json(text)),
+                 "the served proof verifies")
+        verify_again_s = time.perf_counter() - t1
+        _require(setup.const_ext.device == torch.device("cuda", 0),
+                 "the served proof's setup lives on device 0")
+        worker = svc._worker.ident
+    finally:
+        launches = dict(kernels.LAUNCHES)
+        kernels.LAUNCHES = counts
+        counts.update(launches)
+        if client is not None:
+            client.stop()
+        server.stop()
+        if svc is not None:
+            svc.shutdown()
+    main_thread = threading.get_ident()
+    _require(writers <= {worker, main_thread} and worker in writers,
+             "every launch of the served proof came from the service's "
+             "worker thread (the setup's from this one)")
+    t = preq.timings
+    work_s = t["execute_s"] + t["stark_s"] + t["verify_s"]
+    report = {"setup_s": setup_s, "request_s": request_s,
+              "execute_s": t["execute_s"], "stark_s": t["stark_s"],
+              "rounds_s": t["rounds_s"], "verify_s": t["verify_s"],
+              "wire_s": request_s - work_s, "verify_again_s": verify_again_s,
+              "peak_bytes": peak, "launches": launches}
+    print("entry: devnet batch 0 served as GenStatelessBatchProof over "
+          "loopback gRPC, byte-equal to a7_state_devnet/, verified; a "
+          "pending request cancelled, an unknown id refused", flush=True)
+    return launches, report
+
+
+def phase_entry(torch) -> dict:
+    """Phase 11: the entry point, (a) the file mode and (b) the services
+    as processes on the card, side by side, then (c) the served proof in
+    this process.  -> the launches of (c)"""
+    import threading
+
+    from xlayer_prover_tpu_torch import device
+
+    t0 = time.perf_counter()
+    # (a) and (b) run side by side: two processes of their own
+    file_mode = {}
+
+    def run_file_mode():
+        try:
+            file_mode.update(entry_file_mode())
+        except BaseException as e:  # noqa: BLE001 - raised below
+            file_mode["error"] = e
+
+    worker = threading.Thread(target=run_file_mode)
+    worker.start()
+    try:
+        services = entry_services()
+    finally:
+        worker.join()
+    if "error" in file_mode:
+        raise file_mode["error"]
+    print(f"entry: main.py --prove-toy verified in {file_mode['total_s']:.3f}"
+          " s; main.py --run-services answered HashDB, executor and status "
+          "calls, exited with 0 on SIGINT", flush=True)
+    launches, served = entry_served_proof(torch)
+    report = {"card": device.smi("name,power.limit"),
+              "total_s": time.perf_counter() - t0,
+              "prove_toy": file_mode, "run_services": services,
+              "served": served, "launches": launches}
+    print("entry " + json.dumps(report), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1941,6 +2324,7 @@ def main() -> int:
     del cas
     by_path["service_fib"] = phase_service(torch)
     by_path["chains_2e18"] = phase_chains(torch)
+    by_path["entry_2e16"] = phase_entry(torch)
     for path, launches in by_path.items():
         for name in PATH_KERNELS.get(path, STAGE_KERNELS.get(path)):
             _require(launches.get(name, 0) > 0, f"{name} launched on the "

@@ -78,3 +78,53 @@ def test_chain_modules_are_checked(module):
     """The Keccak-F and SHA-256-F chains' modules are among the sources
     the guard above reads."""
     assert ROOT / "xlayer_prover_tpu_torch" / module in SOURCES
+
+
+@pytest.mark.parametrize("module", [
+    "main.py", "utils/config.py", "utils/watchdog.py", "executor/forks.py",
+    "executor/full_tracer.py", "executor/executor.py",
+    "services/aggregator.py", "services/executor_service.py",
+    "services/hashdb_service.py", "services/gen/aggregator_pb2.py",
+    "services/gen/executor_pb2.py", "services/gen/hashdb_pb2.py",
+    "state/hashdb.py"])
+def test_entry_modules_are_checked(module):
+    """The entry point's modules (main.py, the config, the watchdog, the
+    forks, the full tracer, the gRPC services and their generated
+    messages) are among the sources the guard above reads."""
+    assert ROOT / "xlayer_prover_tpu_torch" / module in SOURCES
+
+
+@pytest.mark.parametrize("name", ["__init__.py", "aggregator_pb2.py",
+                                  "executor_pb2.py", "hashdb_pb2.py"])
+def test_generated_messages_are_byte_copies(name):
+    """The port's services/gen/ files are byte-for-byte the JAX package's:
+    both register the same .proto files in protobuf's default pool, which
+    refuses a second file of the same name that differs."""
+    port = ROOT / "xlayer_prover_tpu_torch" / "services" / "gen" / name
+    jax = ROOT / "xlayer_prover_tpu" / "services" / "gen" / name
+    assert port.read_bytes() == jax.read_bytes()
+
+
+def test_main_file_modes_need_no_grpc():
+    """xlayer_prover_tpu_torch.main imports, and its file mode
+    --process-batch dispatches, with grpc and protobuf not importable."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "for name in ('grpc', 'google.protobuf'):\n"
+        "    sys.modules[name] = None\n"
+        "from xlayer_prover_tpu_torch import main\n"
+        "seen = []\n"
+        "main.cmd_process_batch = lambda cfg, path, rom: seen.append(path)"
+        " or 0\n"
+        "assert main.main(['--process-batch', 'in.json']) == 0\n"
+        "assert seen == ['in.json']\n"
+        "from xlayer_prover_tpu_torch.executor import (executor, forks,\n"
+        "                                              full_tracer)\n"
+        "from xlayer_prover_tpu_torch.utils import config, watchdog\n"
+        "assert 'grpc' not in sys.modules or sys.modules['grpc'] is None\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

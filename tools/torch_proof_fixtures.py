@@ -23,6 +23,12 @@ executor steps, each cm1 and const column's sha256, the publics and the
 verkey of the JAX package's run (its Setup: minutes), and
 ``zkevm_devnet0_n18_chains_q4`` the JAX proof (hours on the CPU); named
 together, they share one execution and Setup.
+The executor service's answers to devnet batch 0 (``EXECUTOR``):
+``executor_devnet0`` writes ``tests/data/executor_devnet0.json``, the JAX
+package's ProcessStatelessBatchV2 and ProcessBatchV2 responses to
+``utils/devnet.devnet0_executor_requests()`` (deterministic serialisation,
+hex; the requests' context ids fixed), its service's initial registers set
+as the port's are (``jax_executor_service``; a second).
 The devnet batch 0 proof (``devnet_batch0_n16_q4``) is the committed
 ``a7_state_devnet/batch_proof_0vdev0_nb16_q4.json``: it is read in place
 and never rewritten, and only ``jax_proof`` proves it again.
@@ -447,6 +453,83 @@ def g16_devnet_root_jax():
                         random.Random(11))
 
 
+def jax_executor_service(rom=None, labels=("start", "finalizeExecution")):
+    """The JAX package's ExecutorServiceImpl over `rom` (None: its fork_9
+    ROM), built as its ``main.py --run-services`` builds it (no AIR) but
+    with the executor's labels, which that path leaves unset, and with the
+    initial register file set from each request's input vars before its
+    interpreters run (each fork's too), as the port's service sets it: the
+    JAX service leaves the registers at zero, and every real fork_9 batch
+    then fails a ROM assert (ROADMAP queue 3).  -> the service"""
+    from xlayer_prover_tpu import main as jmain
+    from xlayer_prover_tpu.executor import rom_functions as rf
+    from xlayer_prover_tpu.executor.executor import Executor
+    from xlayer_prover_tpu.executor.forks import ForkRegistry
+    from xlayer_prover_tpu.executor.main_sm import MainExecutor, scalar_to_fea
+    from xlayer_prover_tpu.services.executor_service import \
+        ExecutorServiceImpl
+    from xlayer_prover_tpu.state.hashdb import HashDB
+
+    def with_registers(main):
+        run = main.execute
+
+        def execute(ctx, *labels):
+            iv = ctx.input_vars
+            ctx.regs.B = scalar_to_fea(int(iv.get("oldStateRoot", 0)))
+            ctx.regs.C = scalar_to_fea(int(iv.get("oldAccInputHash", 0)))
+            ctx.regs.SP = int(iv.get("oldBatchNum", 0))
+            ctx.regs.GAS = int(iv.get("chainID", 0))
+            ctx.regs.CTX = int(iv.get("forkID", 0))
+            ctx.regs.SR = scalar_to_fea(int(iv.get("oldStateRoot", 0)))
+            return run(ctx, *labels)
+        main.execute = execute
+        return main
+
+    class Registry(ForkRegistry):
+        def executor(self, fork_id):
+            known = fork_id in self._execs
+            main = super().executor(fork_id)
+            return main if main is None or known else with_registers(main)
+
+    if rom is None:
+        rom, main = jmain._load_rom(None)
+    else:
+        main = MainExecutor(rom, max_steps=1 << 23)
+        rf.register_all(main)
+    executor = Executor.__new__(Executor)
+    executor.rom = rom
+    executor.main = with_registers(main)
+    executor.start_label, executor.stop_label = labels
+    impl = ExecutorServiceImpl(executor, HashDB())
+    impl._forks = Registry()
+    return impl
+
+
+def executor_devnet0_jax() -> str:
+    """The JAX package's answers to devnet batch 0's two executor requests
+    (``utils/devnet.devnet0_executor_requests``), in the order a fresh
+    service takes them (stateless first: it leaves the pre-state in the
+    service's HashDB), as JSON: each response's deterministic
+    serialisation in hex."""
+    from xlayer_prover_tpu_torch.utils import devnet
+    impl = jax_executor_service()
+    stateless, batch = devnet.devnet0_executor_requests()
+    out = {"process_stateless_batch_v2": impl.process_stateless_batch_v2(
+               stateless, None),
+           "process_batch_v2": impl.process_batch_v2(batch, None)}
+    return json.dumps({k: v.SerializeToString(deterministic=True).hex()
+                       for k, v in out.items()}, indent=1) + "\n"
+
+
+def read_executor_devnet0() -> dict:
+    """The committed ``executor_devnet0`` responses: name -> bytes."""
+    with open(os.path.join(DATA, f"{EXECUTOR}.json")) as f:
+        return {k: bytes.fromhex(v) for k, v in json.load(f).items()}
+
+
+EXECUTOR = "executor_devnet0"
+
+
 CASES = {"binary_sm_n10_q4": binary_sm_case,
          "composite_n11_q4": composite_case,
          "zkevm_mini_n13_q4": zkevm_mini_case,
@@ -461,7 +544,7 @@ PROOFS = {"recF_devnet_root_q4": recf_devnet_root_jax,
           CHAINS_PROOF: chains_proof_jax}
 # JSON files of the JAX package that are not proofs: name -> its text,
 # written as tests/data/<name>.json
-DIGESTS = {CHAINS: chains_fixture_jax}
+DIGESTS = {CHAINS: chains_fixture_jax, EXECUTOR: executor_devnet0_jax}
 # Groth16 proofs of the JAX package: name -> (vk, proof, publics), written
 # as snarkjs files (SNARKJS_FILES) into tests/data/<name>/
 GROTH16 = {"g16_fib_bn128_r7": g16_fib_bn128_jax,

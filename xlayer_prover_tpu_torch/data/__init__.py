@@ -1,4 +1,4 @@
-"""The ROM bundles the port runs: the fork_9 zkASM main ROM and the
+"""The ROM bundles the port runs: the zkASM main ROM of forks 1-9 and the
 Storage SM micro-ROM.
 
 Byte-for-byte copies of the JAX package's vendored bundles
@@ -29,8 +29,14 @@ def _load(name: str) -> dict:
 
 
 def load_rom_json(fork_id: int) -> dict:
-    """Parsed rom.json of a fork (only fork 9 is bundled)."""
+    """Parsed rom.json of a bundled fork (1-9)."""
     return _load(f"fork_{fork_id}.rom.json")
+
+
+def has_rom(fork_id: int) -> bool:
+    """Whether the main ROM of `fork_id` is bundled."""
+    return os.path.exists(os.path.join(_DATA_DIR,
+                                       f"fork_{fork_id}.rom.json.gz"))
 
 
 def load_storage_rom_json() -> dict:

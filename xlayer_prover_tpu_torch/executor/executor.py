@@ -5,10 +5,10 @@ equivalent of the reference Executor (src/executor/executor.cpp): the Main
 SM interpreter produces per-step trace records plus action vectors
 (Required); the trace is committed as the Main SM column group and the
 secondary SM expanders fill their column groups of the shared-domain zkEVM
-circuit.  ``execute`` returns the full proving payload: const/cm1 numpy
-columns + publics for ``stark.prover.gen_proof``.  The interpreter in
-Python is the only engine: the JAX package's native fast path (libnexec)
-is not ported.
+circuit.  ``process_batch`` is the fast path (execute only, no trace);
+``execute`` returns the full proving payload: const/cm1 numpy columns +
+publics for ``stark.prover.gen_proof``.  The interpreter in Python is the
+only engine: the JAX package's native fast path (libnexec) is not ported.
 """
 
 from __future__ import annotations
@@ -54,6 +54,17 @@ class Executor:
             rom, n_bits=n_bits, chunk_bits=chunk_bits, limb_bits=limb_bits,
             n_queries=n_queries, start_label=start_label,
             stop_label=stop_label, storage_rom=storage_rom)
+
+    def process_batch(self, hashdb: HashDB, batch_uuid: str = "batch",
+                      input_vars: Optional[dict] = None,
+                      trace: bool = False) -> Context:
+        """Fast path: execute only (the sequencer's ProcessBatch); the
+        per-step trace records only when `trace`."""
+        ctx = Context(self.rom, hashdb, batch_uuid, input_vars)
+        if trace:
+            ctx.trace = []
+        self.main.execute(ctx, self.start_label, self.stop_label)
+        return ctx
 
     def execute(self, hashdb: Optional[HashDB] = None,
                 batch_uuid: str = "batch", input_vars: Optional[dict] = None,

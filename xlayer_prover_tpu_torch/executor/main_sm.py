@@ -243,6 +243,7 @@ class Context:
         # the Main SM polynomial commitment (models/zkevm/main_sm_air.py)
         self.trace: Optional[list] = None
         self._hash_bytes = 0
+        self.full_tracer = None       # executor/full_tracer.py when tracing
         # ECRecoverPrecalc memo (executor/ec_precalc.py): filled at the
         # ecrecover_store_args label, cleared at ecrecover_end
         self.ec_memo = None

@@ -37,3 +37,6 @@ class MemoryDB:
 
     def set_program(self, key: Key, data: bytes):
         self.programs[tuple(key)] = bytes(data)
+
+    def flush(self):
+        pass

@@ -217,6 +217,37 @@ class Smt:
                             proof_hash_counter=len(siblings) if root != ZERO4
                             else 0)
 
+    def read_tree(self, root, keys):
+        """Bulk state-sync read (reference HashDB::readTree,
+        hashdb_interface.hpp:37 / hashdb64_tools): walk every key from
+        `root`, returning ([(key, value)], {node_hash: node12}) — the
+        values plus every tree node touched, so a stateless client can
+        rebuild the relevant sub-trie."""
+        root = tuple(int(v) for v in root)
+        key_values = []
+        hash_nodes = {}
+        for key in keys:
+            key = tuple(int(v) for v in key)
+            bits = split_key(key)
+            r = root
+            level = 0
+            value = 0
+            while r != ZERO4:
+                node = self._read(r)
+                hash_nodes[r] = list(node)
+                if self._is_leaf(node):
+                    leaf_rkey = tuple(node[0:4])
+                    value_hash = tuple(node[4:8])
+                    vnode = self._read(value_hash)
+                    hash_nodes[value_hash] = list(vnode)
+                    if leaf_rkey == remove_key_bits(key, level):
+                        value = fea8_to_value(vnode[0:8])
+                    break
+                r = tuple(node[4:8]) if bits[level] else tuple(node[0:4])
+                level += 1
+            key_values.append((key, value))
+        return key_values, hash_nodes
+
     def set(self, old_root, key, value: int) -> SmtSetResult:
         old_root = tuple(int(v) for v in old_root)
         key = tuple(int(v) for v in key)

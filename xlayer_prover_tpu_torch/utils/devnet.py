@@ -341,6 +341,97 @@ def devnet_prover(device=None, geometry=None):
                        storage_rom=StorageRom.load_default(), device=device)
 
 
+def _devnet_genesis() -> Genesis:
+    """The devnet's genesis: account 1 with 10^18 wei, account 2 with 5."""
+    return build_genesis([Account(address=address_of(DEVNET_PRIV1),
+                                  balance=10 ** 18),
+                          Account(address=address_of(DEVNET_PRIV2),
+                                  balance=5)])
+
+
+def _devnet_datastream(k: int, chain_id: int) -> bytes:
+    """The sequencer datastream of devnet batch k: one block holding one
+    signed legacy transfer of 1000 + k wei from account 1 to account 2 at
+    nonce k, coinbase account 2."""
+    a2 = address_of(DEVNET_PRIV2)
+    tx = sign_legacy_tx(nonce=k, gas_price=10 ** 9, gas=21000, to=a2,
+                        value=1000 + k, data=b"", chain_id=chain_id,
+                        priv=DEVNET_PRIV1)
+    return encode_datastream(
+        batch_number=k + 1, chain_id=chain_id, fork_id=9, coinbase=a2,
+        blocks=[{"block_number": k + 1, "timestamp": 100 * (k + 1),
+                 "delta_timestamp": 100, "l1_info_tree_index": 0,
+                 "txs": [tx]}])
+
+
+def devnet_stateless_batch0(chain_id: int = DEVNET_CHAIN_ID) -> dict:
+    """Devnet batch 0 as a stateless request carries it (the public inputs
+    of GenStatelessBatchProof / ProcessStatelessBatchV2): the genesis
+    witness blob, the datastream, the sequencer address (hex) and the
+    timestamp limit.  Decoded, it is ``build_devnet_inputs(...)[0]``."""
+    return {"witness": encode_witness(_devnet_genesis()),
+            "data_stream": _devnet_datastream(0, chain_id),
+            "sequencer_addr": f"0x{address_of(DEVNET_PRIV2):040x}",
+            "timestamp_limit": 200}
+
+
+# the context ids (batch UUIDs) of devnet batch 0's executor requests
+DEVNET0_CONTEXT_IDS = ("devnet0-stateless", "devnet0-batch")
+
+
+def devnet0_executor_requests():
+    """Devnet batch 0 as the executor service takes it: a
+    ProcessStatelessBatchV2 request (the genesis witness and the
+    datastream) and a ProcessBatchV2 request of the same batch, whose
+    pre-state the service's HashDB holds once the stateless request has
+    run.  -> (stateless request, ProcessBatchV2 request)"""
+    from ..services.gen import executor_pb2 as pb
+    sb = devnet_stateless_batch0()
+    inp = build_devnet_inputs(None, 1)[0]
+    stateless = pb.ProcessStatelessBatchRequestV2(
+        witness=sb["witness"], data_stream=sb["data_stream"],
+        coinbase=sb["sequencer_addr"],
+        timestamp_limit=sb["timestamp_limit"],
+        context_id=DEVNET0_CONTEXT_IDS[0])
+    batch = pb.ProcessBatchRequestV2(
+        old_state_root=inp.old_state_root.to_bytes(32, "big"),
+        old_acc_input_hash=inp.old_acc_input_hash.to_bytes(32, "big"),
+        old_batch_num=inp.old_batch_num, chain_id=inp.chain_id,
+        fork_id=inp.fork_id, batch_l2_data=inp.batch_l2_data,
+        coinbase=sb["sequencer_addr"], timestamp_limit=inp.timestamp_limit,
+        context_id=DEVNET0_CONTEXT_IDS[1])
+    return stateless, batch
+
+
+def input_json(inp) -> dict:
+    """A ``BatchInput`` in the reference's input-file format (the one
+    ``BatchInput.load`` reads): hex scalars, the pre-state nodes under
+    "db" (key: the 64-hex node hash, limb j at bits [64j, 64j + 64);
+    value: 12 limbs of 16 hex digits) and the bytecode under
+    "contractsBytecode"."""
+    def hexkey(quad):
+        return "".join(f"{int(v):016x}" for v in reversed(quad))
+
+    db = {hexkey(k): [f"{int(x):016x}" for x in v]
+          for k, v in inp.db_raw.items()}
+    db.update(inp.db)
+    code = {hexkey(k): "0x" + bytes(v).hex()
+            for k, v in inp.programs_raw.items()}
+    code.update(inp.contracts_bytecode)
+    return {"oldStateRoot": f"0x{inp.old_state_root:064x}",
+            "oldAccInputHash": f"0x{inp.old_acc_input_hash:064x}",
+            "oldNumBatch": inp.old_batch_num,
+            "chainID": inp.chain_id,
+            "forkID": inp.fork_id,
+            "batchL2Data": "0x" + inp.batch_l2_data.hex(),
+            "sequencerAddr": f"0x{inp.sequencer_addr:040x}",
+            "timestampLimit": str(inp.timestamp_limit),
+            "l1InfoRoot": f"0x{inp.l1_info_root:064x}",
+            "forcedBlockHashL1": f"0x{inp.forced_blockhash_l1:064x}",
+            "db": db,
+            "contractsBytecode": code}
+
+
 def build_devnet_inputs(engine, n_batches: int,
                         chain_id: int = DEVNET_CHAIN_ID):
     """n chained batches through the fork_9 ROM: batch k carries one
@@ -353,24 +444,15 @@ def build_devnet_inputs(engine, n_batches: int,
     from ..state.datastream import batch_to_l2_data, datastream2batch
     from ..state.witness import witness2db
 
-    a1, a2 = address_of(DEVNET_PRIV1), address_of(DEVNET_PRIV2)
-    g = build_genesis([Account(address=a1, balance=10 ** 18),
-                       Account(address=a2, balance=5)])
-    wres = witness2db(encode_witness(g))
+    a2 = address_of(DEVNET_PRIV2)
+    wres = witness2db(encode_witness(_devnet_genesis()))
     nodes = {k: list(v) for k, v in wres.db.items()}
     programs = {k: bytes(v) for k, v in wres.programs.items()}
     state_root = wres.state_root
     acc_hash = 0
     inputs = []
     for k in range(n_batches):
-        tx = sign_legacy_tx(nonce=k, gas_price=10 ** 9, gas=21000, to=a2,
-                            value=1000 + k, data=b"", chain_id=chain_id,
-                            priv=DEVNET_PRIV1)
-        batch = datastream2batch(encode_datastream(
-            batch_number=k + 1, chain_id=chain_id, fork_id=9, coinbase=a2,
-            blocks=[{"block_number": k + 1, "timestamp": 100 * (k + 1),
-                     "delta_timestamp": 100, "l1_info_tree_index": 0,
-                     "txs": [tx]}]))
+        batch = datastream2batch(_devnet_datastream(k, chain_id))
         inp = BatchInput(old_state_root=state_root,
                          old_acc_input_hash=acc_hash, old_batch_num=k,
                          chain_id=chain_id, fork_id=9,
