@@ -15,7 +15,9 @@
                                      # with the Keccak-F and SHA-256-F
                                      # chains, then the entry point
                                      # (main.py as processes, devnet
-                                     # batch 0 served over gRPC)
+                                     # batch 0 served over gRPC), then
+                                     # the streamed sections: batch 0 at
+                                     # 2^18 under 16 GiB and at 2^20
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -50,17 +52,16 @@ Phases (any failure exits non-zero and prints no result line):
      build/a7_state_devnet/, launches counted from 0 over the whole run:
      the devnet Setup (fork_9 ROM with the Storage and ClimbKey SMs, 519
      committed columns, 2^16 rows, chunk_bits 4, limb_bits 16, 4
-     queries); four chained batches (``utils/devnet.build_devnet_inputs``:
-     batch k's pre-state from the port's own execution of batch k-1), each
-     a GEN_BATCH_PROOF request to ``ProverService(batch_prover=...)``,
-     proven in its worker thread; the recursion pair over the devnet AIR
-     and verkey (gate AIRs at 2^18 rows, the zkEVM chain link), the four
-     lifts, aggregate_01, aggregate_23 and aggregate_root of the port's own
-     proofs; verify_root; ``finalize(root, wrap="groth16", snark=True,
-     rng=random.Random(11))`` and Groth16's verify.  Every stage must run
-     (none resumed) and launch its kernels; its seconds, launches and peak
-     device memory, and each batch request's execution, STARK (by round,
-     and rows per second) and verification seconds, print as one
+     queries); four chained batch proofs, read back from their
+     a7_state_devnet/ files (the cascade's depth, cut for the time limit:
+     ``CASCADE_READ_BACK``; phase 11 proves batch 0 again as a
+     GenStatelessBatchProof served by ``ProverService``); the
+     recursion pair over the devnet AIR and verkey (gate AIRs at 2^18
+     rows, the zkEVM chain link), the four lifts, aggregate_01,
+     aggregate_23 and aggregate_root; verify_root; ``finalize(root,
+     wrap="groth16", snark=True, rng=random.Random(11))`` and Groth16's
+     verify.  Every other stage must run (none resumed) and launch its
+     kernels; its seconds, launches and peak device memory print as one
      ``cascade`` line before the kernels line.
      Then the batch checks: each batch proof byte-equal to its
      a7_state_devnet/ file and verified, newStateRoot_k ==
@@ -150,6 +151,28 @@ Phases (any failure exits non-zero and prints no result line):
      request's seconds (execution, STARK, verification), the wire's own
      seconds, the processes' start-up seconds, peak memory and launches
      print as the ``entry`` line.
+ 12. the StarkInfo memory plan and the streamed sections
+     (``stark/stark_info.memory_plan``, ``stark/prover.section_plan``):
+     (a) poseidon_linear_hash with a carried capacity over RATE-aligned
+     column blocks read in place, at 2^20 x 39 and 2^19 x 669, bit-equal
+     to the one-shot digest and to its plain version (first 4,096 rows),
+     timed at the streamed LDE's block (2^19 and 2^21 rows x 64, its
+     ``more_shapes`` in the kernels line); (b) phase 10's devnet batch 0
+     at 2^18 proven again under a budget of 16 GiB (the JAX memory_plan's
+     default), where the plan streams (the extended sections in
+     page-locked host memory, LDE and leaves a column block at a time,
+     the quotient and round 5 over row windows), launches counted from 0:
+     byte-equal to phase 10's proof, verified, the allocator's peak at
+     or under 16 GiB; the plan, windows, seconds by round, copies and
+     peaks print as the ``stream_2e18`` line; (c) devnet batch 0 at 2^20
+     rows with the chains (``devnet.devnet_geometry(20)``) as one
+     GEN_BATCH_PROOF to ``ProverService(batch_prover=...)`` under the
+     card's own memory, where the plan streams, launches counted from 0:
+     verified, a changed evaluation and a changed public refused, the
+     publics those of tests/data/zkevm_devnet0_n18_chains.json; its
+     execution, STARK by round, verification, rows a second, peak device
+     and host memory, the host <-> device copies' seconds and GB/s and
+     the launches print as the ``chains_2e20`` line.
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
 versions (and prints how many warps of each an SM holds):
 poseidon_bn254_permute at every width t = 2..17 on 3 states fewer and 5
@@ -187,7 +210,8 @@ g16_h_ntt_s).
 It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
 cascade, the main path that launches every kernel, 0 included;
 ``launches_by_path`` has every path's, the cascade's batch, recursion and
-final parts, ``chains_2e18``, phase 10's, and ``entry_2e16``, phase 11's (c))
+final parts, ``chains_2e18``, phase 10's, ``entry_2e16``, phase 11's (c),
+``stream_2e18`` and ``chains_2e20``, phase 12's (b) and (c))
 and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -197,6 +221,7 @@ from __future__ import annotations
 import json
 import os
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -232,7 +257,9 @@ PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
                             *G16_KERNELS),
                 "service_fib": GL_PATH_KERNELS,
                 "chains_2e18": GL_PATH_KERNELS,
-                "entry_2e16": GL_PATH_KERNELS}
+                "entry_2e16": GL_PATH_KERNELS,
+                "stream_2e18": GL_PATH_KERNELS,
+                "chains_2e20": GL_PATH_KERNELS}
 # the cascade's parts (``cascade_groups``): each stage of a part must
 # launch these kernels
 STAGE_KERNELS = {"cascade_batches": GL_PATH_KERNELS,
@@ -253,6 +280,14 @@ NEW_STATE_ROOT = 19                # publics[19:27]: newStateRoot limbs
 A7 = os.path.join(REPO, "a7_state_devnet")
 # the cascade's stage files and record, made anew in each run
 CASCADE_DIR = os.path.join(REPO, "build", "a7_state_devnet")
+# The cascade's depth, cut for the run's time limit when phase 12 came:
+# the four batch proofs are read back from their committed
+# a7_state_devnet/ files (the port's own proofs, made on the card)
+# instead of being proven again; the four lifts, the aggregations and the
+# final stage are proven here, phase 7 checks all four batch proofs as
+# before (and proves batch 0's trace with a wrong public), and phase 11
+# proves batch 0 again as a served request.
+CASCADE_READ_BACK = (0, 1, 2, 3)
 CASCADE_OUT = os.path.join(REPO, "build", "PROOF_a7_cascade_devnet.json")
 SVC_AGG_FIXTURE = os.path.join(REPO, "tests", "data",
                                "svc_agg_fib_q4.proof.json")
@@ -1243,10 +1278,12 @@ def phase_cascade(torch):
     """The devnet cascade, the main path of this slice
     (``cascade.DevnetCascade`` in a fresh state directory under build/),
     launches counted from 0 over the whole run; the shape of every
-    Poseidon-BN254 launch recorded around the wrappers.  Every stage must
-    have been proven here (none resumed) and each batch, recursion and
-    final stage must have launched its kernels.  -> (launches, cascade,
-    Poseidon-BN254 calls by shape, report)"""
+    Poseidon-BN254 launch recorded around the wrappers; the batch proofs
+    of ``CASCADE_READ_BACK`` copied from a7_state_devnet/ first, so the
+    cascade reads them back.  Every other stage must have been proven here
+    (none resumed) and each batch, recursion and final stage must have
+    launched its kernels.  -> (launches, cascade, Poseidon-BN254 calls by
+    shape, report)"""
     import collections
     import shutil
 
@@ -1255,6 +1292,12 @@ def phase_cascade(torch):
     from xlayer_prover_tpu_torch.ops import poseidon_bn254 as pbn
 
     shutil.rmtree(CASCADE_DIR, ignore_errors=True)
+    os.makedirs(CASCADE_DIR)
+    for k in CASCADE_READ_BACK:
+        name = cascade.batch_stage(k)
+        shutil.copyfile(os.path.join(A7, f"{name}_nb16_q4.json"),
+                        os.path.join(CASCADE_DIR, f"{name}_nb16_q4.json"))
+    read_back = {cascade.batch_stage(k) for k in CASCADE_READ_BACK}
     calls = collections.Counter()
     wrapped = {name: getattr(pbn, name) for name in ("permute", "leaf_hash")}
 
@@ -1286,8 +1329,10 @@ def phase_cascade(torch):
     launches = dict(kernels.LAUNCHES)
     _require(record["status"] == "complete" and record["verified"],
              "the cascade completed and its Groth16 proof verified")
-    _require(all(isinstance(v, float) for v in record["stages"].values()),
-             "every cascade stage was proven in this run, none resumed")
+    _require(all(isinstance(v, float) == (k not in read_back)
+                 for k, v in record["stages"].items()),
+             "every cascade stage but the batch proofs read back was proven "
+             "in this run")
     for name in wrapped:
         _require(sum(v for (k, _), v in calls.items() if k == name)
                  == launches[f"poseidon_bn254_{name}"],
@@ -1298,16 +1343,16 @@ def phase_cascade(torch):
             for name in STAGE_KERNELS[group]:
                 _require(record["launches"][stage].get(name, 0) > 0,
                          f"{name} launched in the cascade's {stage} stage")
-    batch_peak = max(record["peak_bytes"][cascade.batch_stage(k)]
-                     for k in range(cascade.N_BATCHES))
-    air = cas.engine.air
-    _require(batch_peak > air.n_ext * air.cm1_width * 8,
-             "the peak device memory read after a request covers the "
-             "worker's allocations (above the cm1 LDE's bytes)")
+    batches = cascade_groups().get("cascade_batches", [])
+    if batches:
+        air = cas.engine.air
+        _require(max(record["peak_bytes"][s] for s in batches)
+                 > air.n_ext * air.cm1_width * 8,
+                 "the peak device memory read after a request covers the "
+                 "worker's allocations (above the cm1 LDE's bytes)")
     report = {"card": device.smi("name,power.limit"), "total_s": total_s,
-              "inputs_s": record["inputs_s"], "stages_s": record["stages"],
-              "batches": {s: record["timings"][s]
-                          for s in cascade_groups()["cascade_batches"]},
+              "inputs_s": record.get("inputs_s"), "stages_s": record["stages"],
+              "batches": {s: record["timings"][s] for s in batches},
               "pair_s": record["pair_s"],
               "peak_bytes": record["peak_bytes"],
               "peak_bytes_max": max(record["peak_bytes"].values()),
@@ -1318,14 +1363,18 @@ def phase_cascade(torch):
 
 
 def cascade_groups() -> dict:
-    """The cascade's stages by the part of the path they drive."""
+    """The cascade's stages proven in this run, by the part of the path
+    they drive (the batch proofs read back are in none; a part with no
+    stage is left out)."""
     from xlayer_prover_tpu_torch import cascade
     n = cascade.N_BATCHES
-    return {"cascade_batches": [cascade.batch_stage(k) for k in range(n)],
-            "cascade_recursion": [*(f"recursive1_{k}" for k in range(n)),
-                                  "aggregate_01", "aggregate_23",
-                                  "aggregate_root"],
-            "cascade_final": ["finalize_groth16"]}
+    groups = {"cascade_batches": [cascade.batch_stage(k) for k in range(n)
+                                  if k not in CASCADE_READ_BACK],
+              "cascade_recursion": [*(f"recursive1_{k}" for k in range(n)),
+                                    "aggregate_01", "aggregate_23",
+                                    "aggregate_root"],
+              "cascade_final": ["finalize_groth16"]}
+    return {k: v for k, v in groups.items() if v}
 
 
 def phase_batches(torch, cas):
@@ -1362,8 +1411,8 @@ def phase_batches(torch, cas):
         want_head = json.load(f)["batch_publics_head"]
     _require(cas.record["batch_publics_head"] == want_head,
              "the batch publics head equals PROOF_a7_cascade_devnet.json's")
-    print("devnet: batch proofs 0-3 served by ProverService byte-equal to "
-          "a7_state_devnet/, verified, state roots chained", flush=True)
+    print("devnet: batch proofs 0-3 byte-equal to a7_state_devnet/, "
+          "verified, state roots chained", flush=True)
 
     t0 = time.perf_counter()
     res = engine.execute_only(cas.inputs()[0])
@@ -1788,7 +1837,8 @@ def phase_chains(torch):
     where it was made, the proof byte for byte; the proof verifies, and
     with one evaluation or one public changed it is refused.  The port's
     gates.execute on the card over the Keccak slot's 48 states equals
-    execute_all_wires_np.  -> launches"""
+    execute_all_wires_np.  -> (launches, what phase 12 (b) proves
+    again)"""
     import numpy as np
 
     from xlayer_prover_tpu_torch import device, kernels
@@ -1931,9 +1981,14 @@ def phase_chains(torch):
               "verify_s": t["verify_s"], "rows_per_s": air.n / t["stark_s"],
               "verify_again_s": verify_s, "digest_s": digest_s,
               "gates_execute_ms": gates_ms, "peak_bytes": peak,
+              "plan": _stream_stats(t["stark_stats"]),
               "launches": launches, "kernel_shapes": shapes}
     print("chains_2e18 " + json.dumps(report), flush=True)
-    return launches
+    # what phase 12 (b) proves again under a 16 GiB budget, on the host
+    kept = {"air": air, "const_np": gl.to_u64_np(setup.const_n),
+            "cm1_np": res.cm1_np, "publics": list(res.publics),
+            "proof_json": proof.to_json()}
+    return launches, kept
 
 
 def _free_port() -> int:
@@ -2280,6 +2335,281 @@ def phase_entry(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the StarkInfo memory plan and the streamed sections
+# ---------------------------------------------------------------------------
+
+STREAM_BUDGET = 16 << 30           # (b): the JAX memory_plan's default
+STREAM_N_BITS = 20                 # (c): devnet batch 0 at 2^20 rows
+STREAM_REQUEST_S = 2400.0          # (c): the request's wait
+
+
+def _capacity_hash(linear_hash, rows, width: int, block: int):
+    """linear_hash of (n, width) rows absorbed `block` columns at a time,
+    each block read in place and its digest carried into the next."""
+    dig = None
+    for c0 in range(0, width, block):
+        w = min(block, width - c0)
+        dig = linear_hash(rows[:, c0:c0 + w], w, dig)
+    return dig
+
+
+def phase_stream_kernels(torch, rng) -> list:
+    """Phase 12 (a): poseidon_linear_hash with a carried capacity over
+    RATE-aligned column blocks read in place, at 2^20 x 39 (blocks of 16)
+    and 2^19 x 669 (blocks of 64), bit for bit equal to the one-shot
+    digest of the whole width and, on the first 4,096 rows, to the plain
+    version block by block; then timed at the streamed LDE's shape, a
+    64-column block with a carried capacity, at the 2^18 and 2^20
+    extended domains.  -> K2's shapes for its more_shapes"""
+    import numpy as np
+
+    from xlayer_prover_tpu_torch.fields import gl
+    from xlayer_prover_tpu_torch.ops import poseidon_gl
+
+    P = gl.P
+    cuda = torch.device("cuda")
+    small = 4096
+    for n, width, block in ((1 << 20, 39, 16), (1 << 19, 669, 64)):
+        host = rng.integers(0, P, size=(n, width), dtype=np.uint64)
+        host[:8] = np.array([0, 1, P - 1, P, P + 1, (1 << 63),
+                             (1 << 64) - 1, (1 << 32) - 1],
+                            dtype=np.uint64)[:, None]
+        rows = gl.from_u64_np(host, cuda)
+        del host
+        one = poseidon_gl.linear_hash(rows, width)
+        blocks = _capacity_hash(poseidon_gl.linear_hash, rows, width, block)
+        plain = _capacity_hash(poseidon_gl._linear_hash_plain, rows[:small],
+                               width, block)
+        torch.cuda.synchronize()
+        _require(torch.equal(blocks, one),
+                 f"poseidon_linear_hash over {block}-column blocks with a "
+                 f"carried capacity equals the one-shot digest at "
+                 f"[{n}, {width}]")
+        _require(torch.equal(blocks[:small], plain),
+                 f"poseidon_linear_hash with a carried capacity equals its "
+                 f"plain version at [{small}, {width}] in {block}-column "
+                 "blocks")
+        print(f"stream: poseidon_linear_hash over {block}-column blocks of "
+              f"[{n}, {width}] with a carried capacity, read in place, "
+              "equals the one-shot digest and the plain version", flush=True)
+        del rows, one, blocks, plain
+        torch.cuda.empty_cache()
+    int_rate = int_mul_rate(torch)
+    shapes = []
+    for n in (1 << 19, 1 << 21):
+        block = torch.randint(-(1 << 63), (1 << 63) - 1, (n, 64),
+                              dtype=torch.int64, device=cuda)
+        cap = torch.randint(-(1 << 63), (1 << 63) - 1, (n, 4),
+                            dtype=torch.int64, device=cuda)
+        ms = _cuda_ms(lambda: poseidon_gl.linear_hash(block, 64, cap), 5)
+        bound, by = _bound_ms({"bytes": (64 + 4 + 4) * 8 * n,
+                               "ops": poseidon_mul32() * 8 * n}, int_rate)
+        shapes.append({"shape": [n, 64], "capacity": True, "ms": ms,
+                       "bound_ms": bound, "bound_by": by})
+        print(f"kernel poseidon_linear_hash at [{n}, 64] with a carried "
+              f"capacity (a streamed LDE block): {ms:.4f} ms (bound "
+              f"{bound:.4f} ms by {by})", flush=True)
+        del block, cap
+        torch.cuda.empty_cache()
+    return shapes
+
+
+def _stream_stats(stats: dict) -> dict:
+    """The plan, windows, copies and peaks of a proof's stats, with each
+    copy direction's GB/s."""
+    out = {k: stats.get(k) for k in (
+        "stream", "budget", "total_bytes", "hbm_resident",
+        "stream_block_cols", "block_cols", "window_rows", "windows",
+        "round5_window_rows", "round5_windows", "quotient_bytes",
+        "peak_bytes", "allocated_bytes")}
+    out["copies"] = {k: dict(v, gb_per_s=(v["bytes"] / v["s"] / 1e9
+                                          if v["s"] and k != "pin_wait"
+                                          else None))
+                     for k, v in stats.get("copies", {}).items()}
+    return out
+
+
+def phase_stream_2e18(torch, chains: dict) -> dict:
+    """Phase 12 (b): phase 10's devnet batch 0 at 2^18 proven again under
+    a budget of 16 GiB (the JAX memory_plan's default), where the plan
+    streams: the Setup and the proof (launches counted from 0, the peak
+    reset, phase 10's device data freed), byte-equal to phase 10's
+    resident proof, the allocator's peak at or under the budget.
+    -> launches"""
+    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.stark import prover, verifier
+    from xlayer_prover_tpu_torch.stark.proof import StarkProof
+
+    air = chains["air"]
+    sp = prover.section_plan(air, "cuda", STREAM_BUDGET)
+    _require(sp.stream, "the plan streams the 2^18 chains AIR under 16 GiB")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    setup = prover.Setup.build(air, chains["const_np"],
+                               hbm_bytes=STREAM_BUDGET)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _require(not setup.const_ext.is_cuda, "the streamed Setup keeps its "
+             "extended constants in host memory")
+    timings, stats = {}, {}
+    t0 = time.perf_counter()
+    proof = prover.gen_proof(setup, chains["cm1_np"], chains["publics"],
+                             timings=timings, stats=stats)
+    torch.cuda.synchronize()
+    stark_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _require(proof.to_json() == chains["proof_json"],
+             "the 2^18 proof streamed under 16 GiB is byte-equal to phase "
+             "10's resident proof")
+    _require(peak <= STREAM_BUDGET, f"the streamed 2^18 proof's peak device "
+             f"memory {peak} B is at or under 16 GiB")
+    t0 = time.perf_counter()
+    _require(verifier.verify(air, setup.verkey,
+                             StarkProof.from_json(proof.to_json())),
+             "the streamed 2^18 proof verifies")
+    verify_s = time.perf_counter() - t0
+    report = {"card": device.smi("name,power.limit"), "n_bits": air.n_bits,
+              "setup_s": setup_s, "stark_s": stark_s, "rounds_s": timings,
+              "verify_s": verify_s, "rows_per_s": air.n / stark_s,
+              "peak_bytes": peak, "plan": _stream_stats(stats),
+              "launches": launches}
+    print(f"stream: devnet batch 0 at 2^18 under 16 GiB: plan total_bytes="
+          f"{stats['total_bytes']} hbm_resident={stats['hbm_resident']} "
+          f"stream_block_cols={stats['stream_block_cols']} (LDE blocks of "
+          f"{stats['block_cols']}), {stats['windows']} row windows of "
+          f"{stats['window_rows']}; byte-equal to phase 10's proof, "
+          f"verified, peak {peak} B", flush=True)
+    print("stream_2e18 " + json.dumps(report), flush=True)
+    return launches
+
+
+def _host_peak_rss() -> int:
+    """This process's peak resident set so far, in bytes."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def prepare_2e20(out: dict):
+    """Phase 12 (c)'s host work, run beside the kernels' build: the 2^20
+    devnet BatchProver (its AIR) and its constant columns (the
+    executor's, shared by the Setup and the request's execution).  Any
+    error is kept in out["error"] for phase 12 (c) to raise."""
+    try:
+        from xlayer_prover_tpu_torch.utils import devnet
+        t0 = time.perf_counter()
+        out["engine"] = devnet.devnet_prover(
+            geometry=devnet.devnet_geometry(STREAM_N_BITS))
+        out["build_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["engine"].executor.fixed()
+        out["fixed_s"] = time.perf_counter() - t0
+    except Exception as e:  # noqa: BLE001 - raised in phase 12 (c)
+        out["error"] = e
+
+
+def phase_stream_2e20(torch, prep: dict) -> dict:
+    """Phase 12 (c): devnet batch 0 at 2^20 rows with the chains
+    (``devnet.devnet_geometry(20)``, built by ``prepare_2e20``) as one
+    GEN_BATCH_PROOF request to ``ProverService(batch_prover=...)`` with
+    the card's own memory as the budget, under which the plan streams;
+    launches counted from 0 and the peak reset before the setup.  The
+    proof verifies (the service verifies it before the request
+    completes), with one evaluation or one public changed it is refused,
+    and its publics equal the 2^18 JAX fixture's (the same batch executes
+    to the same roots at any geometry).  -> launches"""
+    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.fields import gl
+    from xlayer_prover_tpu_torch.prover_service import (ProverRequest,
+                                                         ProverService,
+                                                         RequestState,
+                                                         RequestType)
+    from xlayer_prover_tpu_torch.stark import prover, verifier
+    from xlayer_prover_tpu_torch.stark.proof import StarkProof
+    from xlayer_prover_tpu_torch.utils import devnet
+
+    if "error" in prep:
+        raise prep["error"]
+    with open(CHAINS_FIXTURE) as f:
+        want = json.load(f)
+    engine, build_s = prep["engine"], prep["build_s"]
+    air = engine.air
+    sp = prover.section_plan(air, "cuda")
+    _require(sp.stream, f"the plan streams devnet batch 0 at 2^{air.n_bits} "
+             "under the card's memory")
+    print(f"stream: devnet batch 0 at 2^{air.n_bits}: cm1={air.cm1_width} "
+          f"cm2={air.cm2_width} cm3={air.cm3_width} const="
+          f"{air.const_width} q_deg={air.q_deg} plookups="
+          f"{len(air.plookups)}; plan total_bytes="
+          f"{sp.plan['total_bytes']} hbm_resident="
+          f"{sp.plan['hbm_resident']} stream_block_cols="
+          f"{sp.plan['stream_block_cols']} (LDE blocks of {sp.block_cols}) "
+          f"under {sp.budget} B; AIR build {build_s:.3f} s and constants "
+          f"{prep['fixed_s']:.3f} s beside the kernels' build", flush=True)
+    inp = devnet.build_devnet_inputs(engine, 1)[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    setup = engine.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    _require(not setup.const_ext.is_cuda, "the 2^20 Setup keeps its "
+             "extended constants in host memory")
+    svc = ProverService(batch_prover=engine)
+    try:
+        req = ProverRequest(RequestType.GEN_BATCH_PROOF, {"input": inp})
+        t0 = time.perf_counter()
+        svc.submit(req)
+        svc.wait(req.uuid, timeout=STREAM_REQUEST_S)
+        request_s = time.perf_counter() - t0
+    finally:
+        svc.shutdown()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    host_peak = _host_peak_rss()
+    if req.state != RequestState.COMPLETED:
+        raise RuntimeError(f"stream: the 2^{air.n_bits} GEN_BATCH_PROOF "
+                           f"ended {req.state.value}: {req.error}")
+    # the service verified the proof before it completed the request
+    # (verifier.verify raises VerifyError on a proof that fails)
+    proof = req.proof
+    _require(proof.publics == [p % gl.P for p in want["publics"]],
+             f"the 2^{air.n_bits} publics equal the 2^18 JAX fixture's")
+    bad = StarkProof.from_json(proof.to_json())
+    bad.evals[0][0] = (int(bad.evals[0][0]) + 1) % gl.P
+    print("stream: a tampered evaluation refused: "
+          + _tampered(verifier, air, setup.verkey, bad, "a tampered "
+                      "evaluation"), flush=True)
+    bad = StarkProof.from_json(proof.to_json())
+    bad.publics[NEW_STATE_ROOT] = (int(bad.publics[NEW_STATE_ROOT]) + 1) \
+        % gl.P
+    print("stream: a tampered public refused: "
+          + _tampered(verifier, air, setup.verkey, bad, "a tampered public"),
+          flush=True)
+    t = req.timings
+    report = {"card": device.smi("name,power.limit"), "n_bits": air.n_bits,
+              "rows": air.n, "build_s": build_s, "fixed_s": prep["fixed_s"],
+              "setup_s": setup_s, "request_s": request_s,
+              "execute_s": t["execute_s"], "stark_s": t["stark_s"],
+              "rounds_s": t["rounds_s"], "verify_s": t["verify_s"],
+              "rows_per_s": air.n / t["stark_s"], "peak_bytes": peak,
+              "host_peak_rss_bytes": host_peak,
+              "plan": _stream_stats(t["stark_stats"]),
+              "launches": launches}
+    print(f"stream: devnet batch 0 at 2^{air.n_bits} proven as a "
+          "GEN_BATCH_PROOF, verified, tampered proofs refused, publics "
+          "equal to the 2^18 fixture's", flush=True)
+    print(f"chains_2e{air.n_bits} " + json.dumps(report), flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2297,9 +2627,29 @@ def main() -> int:
 
     t_all = time.perf_counter()
     print(device.smi("name,power.limit"), flush=True)
+    # phase 12 (c)'s host work (the 2^20 AIR and its constants) runs
+    # while nvcc builds the kernels, and is joined before phase 2 times
+    # anything
+    prep: dict = {}
+    shadow = threading.Thread(target=prepare_2e20, args=(prep,))
+    shadow.start()
     t0 = time.perf_counter()
-    print_ptxas(kernels.build_all())
-    print(f"build_s {time.perf_counter() - t0:.2f}", flush=True)
+    try:
+        print_ptxas(kernels.build_all())
+    finally:
+        shadow.join()
+    print(f"build_s {time.perf_counter() - t0:.2f} (with phase 12 (c)'s "
+          f"AIR {prep.get('build_s', 0):.2f} s and constants "
+          f"{prep.get('fixed_s', 0):.2f} s beside it)", flush=True)
+
+    phase_s = {}
+    marks = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = now - marks[0]
+        marks[0] = now
+        print(f"phase_s {name} {phase_s[name]:.2f}", flush=True)
 
     t0 = time.perf_counter()
     case = binary_sm.seeded_case()
@@ -2311,20 +2661,35 @@ def main() -> int:
                          (1 << (air.n_bits_ext - 1)) * air.cm1_width)
     rows += phase_bn254_kernels(torch, rng)
     rows += phase_g16_kernels(torch, rng)
+    mark("2_kernels")
     phase_fib(torch)
     by_path = {"binary_sm_2e20": phase_binary(torch, case, trace_s)}
     del case
+    mark("3_4_fib_binary")
     by_path["zkevm_2e13"] = phase_zkevm(torch)
+    mark("5_zkevm")
     by_path["cascade"], cas, calls, cascade_report = phase_cascade(torch)
     for group, stages in cascade_groups().items():
         by_path[group] = _stage_launches(cas.record, stages)
+    mark("6_cascade")
     phase_batches(torch, cas)
     at_rec1 = phase_recursion(torch, cas)
     at_final = phase_final(torch, cas, calls)
     del cas
+    mark("7_8_checks")
     by_path["service_fib"] = phase_service(torch)
-    by_path["chains_2e18"] = phase_chains(torch)
+    mark("9_service")
+    by_path["chains_2e18"], chains = phase_chains(torch)
+    mark("10_chains")
     by_path["entry_2e16"] = phase_entry(torch)
+    mark("11_entry")
+    capacity_shapes = phase_stream_kernels(torch, rng)
+    by_path["stream_2e18"] = phase_stream_2e18(torch, chains)
+    del chains
+    mark("12ab_stream_2e18")
+    by_path["chains_2e20"] = phase_stream_2e20(torch, prep)
+    del prep
+    mark("12c_chains_2e20")
     for path, launches in by_path.items():
         for name in PATH_KERNELS.get(path, STAGE_KERNELS.get(path)):
             _require(launches.get(name, 0) > 0, f"{name} launched on the "
@@ -2335,6 +2700,8 @@ def main() -> int:
                                  for p, v in by_path.items()}
         r["at_recursion_shape"] = at_rec1.get(r["name"])
         r["at_final_shape"] = at_final.get(r["name"])
+        if r["name"] == "poseidon_linear_hash":
+            r["more_shapes"] += capacity_shapes
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "plain_shape", "more_shapes", "launches_by_path",

@@ -237,8 +237,8 @@ def main() -> int:
 
         def hash_rows(rows, dst):
             kernels.check(lib.poseidon_linear_hash_launch(
-                rows.data_ptr(), dst.data_ptr(), rows.shape[0],
-                rows.shape[1], stream), "linear_hash")
+                rows.data_ptr(), None, dst.data_ptr(), rows.shape[0],
+                rows.shape[1], rows.shape[1], stream), "linear_hash")
 
         permute()
         hash_rows(leaves, digests[0])

@@ -86,6 +86,44 @@ def test_linear_hash_kernel_matches_plain(gen, cuda_device, width):
         poseidon_gl.linear_hash(wide[:, ::2], width)
 
 
+@pytest.mark.parametrize("width,block", [(9, 8), (39, 16), (669, 64)])
+def test_linear_hash_kernel_carried_capacity(gen, cuda_device, width, block):
+    """RATE-aligned column blocks read in place (the row stride of the
+    whole width), each digest carried into the next block, give the
+    one-shot digest and the plain version's."""
+    rows = gen.integers(0, P, size=(1000, width), dtype=np.uint64)
+    rows[:EDGES.size] = EDGES[:, None]
+    t = gl.from_u64_np(rows, cuda_device)
+    dig = plain = None
+    before = kernels.LAUNCHES["poseidon_linear_hash"]
+    for c0 in range(0, width, block):
+        w = min(block, width - c0)
+        dig = poseidon_gl.linear_hash(t[:, c0:c0 + w], w, dig)
+        plain = poseidon_gl._linear_hash_plain(t[:, c0:c0 + w], w, plain)
+    assert kernels.LAUNCHES["poseidon_linear_hash"] == \
+        before + -(-width // block)
+    assert torch.equal(dig, poseidon_gl.linear_hash(t, width))
+    assert torch.equal(dig, plain)
+
+
+def test_streamed_proof_on_cuda_equals_resident(cuda_device):
+    """The Binary SM at n_bits 10 under a budget that streams: the host
+    sections page-locked, the proof the JAX package's byte for byte."""
+    from tools import torch_proof_fixtures as fixtures
+    air, _layout, const_np, cm1, _ = fixtures.binary_sm_case(
+        "xlayer_prover_tpu_torch")
+    budget = 2 << 20
+    assert prover.section_plan(air, cuda_device, budget).stream
+    setup = prover.Setup.build(air, const_np, device=cuda_device,
+                               hbm_bytes=budget)
+    assert not setup.const_ext.is_cuda
+    stats = {}
+    proof = prover.gen_proof(setup, cm1, [], stats=stats)
+    assert stats["windows"] > 1 and stats["copies"]["h2d"]["bytes"] > 0
+    assert proof.to_json() == fixtures.read("binary_sm_n10_q4")
+    assert verifier.verify(air, setup.verkey, proof)
+
+
 def test_merkelize_on_cuda_equals_cpu(gen, cuda_device):
     rows = gen.integers(0, P, size=(1 << 10, 39), dtype=np.uint64)
     cpu = merkle.merkelize(gl.from_u64_np(rows, "cpu"), 39)

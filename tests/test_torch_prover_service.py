@@ -131,7 +131,7 @@ def test_batch_prover_times_execute_stark_and_rounds():
     engine = types.SimpleNamespace(
         execute_only=lambda batch_input, batch_uuid: types.SimpleNamespace(
             cm1_np="cm1", publics=[7], ctx=f"ctx-{batch_input}"),
-        prove_from_trace=prove_from_trace)
+        prove_from_trace=prove_from_trace, stark_stats=None)
     timings = {}
     check = object()
     assert service.BatchProver.prove(engine, "in", "u", abort_check=check,
@@ -407,7 +407,8 @@ def test_batch_prover_preloads_the_constants_tree(cases, tmp_path,
 
     def engine():
         bp = service.BatchProver.__new__(service.BatchProver)
-        bp.executor = types.SimpleNamespace(air=air, layout=None)
+        bp.executor = types.SimpleNamespace(
+            air=air, fixed=lambda: zkevm_air.fill_fixed(air, None))
         bp.device, bp._setup = "cpu", None
         return bp
 

@@ -170,8 +170,14 @@ class DevnetCascade:
         return out
 
     def inputs(self) -> list:
+        """The batches' inputs, planned up to the last batch whose proof
+        is not on file (batch 0's alone when every one is): a batch read
+        back after it needs no planning execution."""
         if self._inputs is None:
-            self._inputs = devnet.build_devnet_inputs(self.engine, N_BATCHES)
+            missing = [k for k in range(N_BATCHES)
+                       if not os.path.exists(self.path(batch_stage(k)))]
+            self._inputs = devnet.build_devnet_inputs(
+                self.engine, 1 + max(missing, default=0))
         return self._inputs
 
     def serve_batch(self, service: ProverService, k: int, timings: dict):

@@ -339,24 +339,34 @@ __global__ void __launch_bounds__(kThreads, POSEIDON_MIN_BLOCKS)
   }
 }
 
-// (n, width) rows -> (n, 4) digests; width > 4 (the wrapper pads
-// narrower rows without a launch).
+// (n, width) rows, row t at rows + t * stride, -> (n, 4) digests: RATE-8
+// chunks absorbed with the previous digest as the capacity, starting from
+// cap_in (n, 4) where it is given, else from zero.  A row absorbed in
+// RATE-aligned column blocks, each block's digest the next one's cap_in,
+// gives the one-shot digest; a block of a wider tile is read in place
+// (stride = the tile's width).  The wrapper pads one-shot rows of width
+// <= 4 without a launch.
 __global__ void __launch_bounds__(kThreads, POSEIDON_MIN_BLOCKS)
     poseidon_linear_hash_kernel(const uint64_t* __restrict__ rows,
+                                const uint64_t* __restrict__ cap_in,
                                 uint64_t* __restrict__ out, int64_t n,
-                                int width) {
+                                int width, int64_t stride) {
   int64_t base = (int64_t)blockIdx.x * kPerBlock + threadIdx.x;
   uint64_t s[kStates][WIDTH];
 #pragma unroll
-  for (int q = 0; q < kStates; q++)
+  for (int q = 0; q < kStates; q++) {
+    int64_t t = base + (int64_t)q * kThreads;
 #pragma unroll
-    for (int k = RATE; k < WIDTH; k++) s[q][k] = 0;
+    for (int k = RATE; k < WIDTH; k++)
+      s[q][k] = (cap_in != nullptr && t < n) ? cap_in[t * DIGEST + k - RATE]
+                                             : 0;
+  }
 #pragma unroll 1
   for (int start = 0; start < width; start += RATE) {
 #pragma unroll
     for (int q = 0; q < kStates; q++) {
       int64_t t = base + (int64_t)q * kThreads;
-      const uint64_t* row = rows + (t < n ? t : 0) * width + start;
+      const uint64_t* row = rows + (t < n ? t : 0) * stride + start;
 #pragma unroll
       for (int k = 0; k < RATE; k++)
         s[q][k] = (t < n && start + k < width) ? row[k] : 0;
@@ -393,12 +403,14 @@ extern "C" int poseidon_permute_launch(const void* in, void* out, int64_t n,
   return (int)cudaGetLastError();
 }
 
-extern "C" int poseidon_linear_hash_launch(const void* rows, void* out,
+extern "C" int poseidon_linear_hash_launch(const void* rows,
+                                           const void* cap_in, void* out,
                                            int64_t n, int width,
-                                           void* stream) {
+                                           int64_t stride, void* stream) {
   int64_t blocks = (n + kPerBlock - 1) / kPerBlock;
   poseidon_linear_hash_kernel<<<(unsigned)blocks, kThreads, 0,
                                 (cudaStream_t)stream>>>(
-      (const uint64_t*)rows, (uint64_t*)out, n, width);
+      (const uint64_t*)rows, (const uint64_t*)cap_in, (uint64_t*)out, n,
+      width, stride);
   return (int)cudaGetLastError();
 }

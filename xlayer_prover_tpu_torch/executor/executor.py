@@ -54,6 +54,18 @@ class Executor:
             rom, n_bits=n_bits, chunk_bits=chunk_bits, limb_bits=limb_bits,
             n_queries=n_queries, start_label=start_label,
             stop_label=stop_label, storage_rom=storage_rom)
+        self._fixed = None
+
+    def fixed(self) -> np.ndarray:
+        """The circuit's constant columns (``zkevm_air.fill_fixed``),
+        filled once per executor: they do not depend on the input.  The
+        array is read-only, shared by every execution and the Setup."""
+        const_np = self._fixed
+        if const_np is None:
+            const_np = zkevm_air.fill_fixed(self.air, self.layout)
+            const_np.flags.writeable = False
+            self._fixed = const_np
+        return const_np
 
     def process_batch(self, hashdb: HashDB, batch_uuid: str = "batch",
                       input_vars: Optional[dict] = None,
@@ -104,7 +116,8 @@ class Executor:
                          ctx.counters.poseidon_g),
         }
         const_np, cm1_np, publics = zkevm_air.gen_trace(
-            self.air, self.layout, ctx.trace, final_regs, req)
+            self.air, self.layout, ctx.trace, final_regs, req,
+            const_np=self.fixed())
         log.info("executor: %d steps, %d binary ops, %d memory accesses, "
                  "%d eq0 ariths", ctx.counters.steps, len(req.binary),
                  len(req.memory), sum(1 for a in req.arith if a[0] == 0))

@@ -34,8 +34,8 @@ _LIBS = {
     "poseidon_gl": ("poseidon_gl.cu", {
         "poseidon_set_constants": [_P, ctypes.c_int64],
         "poseidon_permute_launch": [_P, _P, ctypes.c_int64, _P],
-        "poseidon_linear_hash_launch": [_P, _P, ctypes.c_int64, ctypes.c_int,
-                                        _P],
+        "poseidon_linear_hash_launch": [_P, _P, _P, ctypes.c_int64,
+                                        ctypes.c_int, ctypes.c_int64, _P],
     }),
     "poseidon_bn254": ("poseidon_bn254.cu", {
         "poseidon_bn254_permute_launch": [_P, _P, ctypes.c_int64, ctypes.c_int,

@@ -354,14 +354,17 @@ def fill_fixed(air, layout: ZkevmLayout) -> np.ndarray:
     return const_np
 
 
-def gen_trace(air, layout: ZkevmLayout, records, final_regs, required):
+def gen_trace(air, layout: ZkevmLayout, records, final_regs, required,
+              const_np=None):
     """Fill const + cm1 for the full circuit from an execution.
 
     records/final_regs: the Main SM trace (main_sm.py Context.trace);
-    required: the secondary-SM action vectors (Required).
+    required: the secondary-SM action vectors (Required); const_np: the
+    constant columns when already filled (``fill_fixed``).
     Returns (const_np, cm1_np, publics).
     """
-    const_np = fill_fixed(air, layout)
+    if const_np is None:
+        const_np = fill_fixed(air, layout)
     cm1 = np.zeros((air.n, air.cm1_width), dtype=np.uint64)
 
     bin_actions = [(binary_sm.OPNAMES[op], a, b)

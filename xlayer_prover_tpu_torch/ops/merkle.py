@@ -7,6 +7,14 @@ left || right, so a level of n contiguous digests is ``linear_hash`` of
 its free (n/2, 8) view: on the GPU one ``poseidon_linear_hash`` launch
 for the leaves and one a level.  The query openings gather their rows and
 sibling digests on the device and pull them to the host once per tree.
+
+A section kept in host memory (the counterpart of the JAX
+``merkelize_np``) is hashed a RATE-aligned column block at a time while
+each block is on the device: ``LeafDigests`` carries each row's digest
+from one block to the next (``linear_hash``'s capacity), which gives the
+one-shot digest; the levels are then built on the device from the
+leaves.  Its query rows are gathered from the host section
+(``gather_rows``), its paths from the device tree (``get_proofs_batch``).
 """
 
 from __future__ import annotations
@@ -38,13 +46,50 @@ def merkelize(rows, width: int) -> MerkleTree:
     n = rows.shape[0]
     if n & (n - 1):
         raise ValueError("merkelize: height must be a power of two")
-    cur = poseidon.linear_hash(rows, width)
+    return tree_from_leaves(poseidon.linear_hash(rows, width), width)
+
+
+def tree_from_leaves(leaves, width: int) -> MerkleTree:
+    """The levels above (n, 4) leaf digests, on their device."""
+    cur = leaves
     levels = [cur]
     while cur.shape[0] > 1:
         pairs = cur.view(cur.shape[0] // 2, 2 * poseidon.HASH_SIZE)
         cur = poseidon.linear_hash(pairs, 2 * poseidon.HASH_SIZE)
         levels.append(cur)
     return MerkleTree(levels=tuple(levels), width=width)
+
+
+class LeafDigests:
+    """The leaf digests of a `width`-column section absorbed column block
+    by column block, on the blocks' device: ``absorb`` takes the blocks
+    left to right, each but the last a multiple of RATE wide; ``tree``
+    then builds the levels.  Equal to ``merkelize`` of the whole rows."""
+
+    def __init__(self, width: int):
+        self.width = width
+        self.cols = 0
+        self.digest = None
+
+    def absorb(self, block):
+        w = block.shape[1]
+        if self.cols % poseidon.RATE or self.cols + w > self.width:
+            raise ValueError(f"LeafDigests: a block of {w} columns at "
+                             f"column {self.cols} of {self.width}")
+        if self.width <= poseidon.CAPACITY:
+            # a row of <= 4 columns is its own (zero-padded) digest
+            self.digest = poseidon.linear_hash(block, w)
+        else:
+            self.digest = poseidon.linear_hash(block, w, self.digest)
+        self.cols += w
+
+    def tree(self, rows: int, device) -> MerkleTree:
+        if self.cols != self.width:
+            raise ValueError(f"LeafDigests: {self.cols} of {self.width} "
+                             f"columns absorbed")
+        leaves = self.digest if self.digest is not None else \
+            gl.zeros((rows, poseidon.HASH_SIZE), device)
+        return tree_from_leaves(leaves, self.width)
 
 
 def get_proof(tree: MerkleTree, idx: int):
@@ -72,7 +117,8 @@ def get_proofs_batch(tree: MerkleTree, indices) -> np.ndarray:
 
 
 def gather_rows(source, indices) -> np.ndarray:
-    """Query rows of a source: (len(indices), width) uint64, one pull."""
+    """Query rows of a source, a tensor on the device or in host memory:
+    (len(indices), width) uint64, one pull."""
     idx = torch.as_tensor(np.asarray(list(indices), dtype=np.int64),
                           device=source.device)
     return gl.to_u64_np(source.index_select(0, idx))

@@ -16,6 +16,9 @@ Conventions (the reference prover's):
   * ``intt``: inverse transform (scales by N^-1).
   * ``extend_pol``: INTT on N, multiply coeff k by shift^k (shift = 7), then
     NTT on N_ext: evaluations on the shifted coset of the larger domain.
+  * ``extend_pol_blocks``: ``extend_pol`` of a section too wide for the
+    device, a column block at a time, into a host tensor (the counterpart
+    of the JAX ``extend_pol_np``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import device as dev
 from ..fields import gl
 
 P = gl.P
@@ -157,3 +161,41 @@ def extend_pol(a, nbits_ext: int, shift: int = gl.SHIFT):
     pad = torch.zeros(((1 << nbits_ext) - n,) + tuple(a.shape[1:]),
                       dtype=a.dtype, device=a.device)
     return ntt(torch.cat([coeffs, pad]), nbits_ext)
+
+
+def extend_pol_blocks(a, nbits_ext: int, block_cols: int, device,
+                      on_block=None, shift: int = gl.SHIFT):
+    """Streamed LDE: the (N, C) section `a` (a numpy uint64 array, a host
+    tensor or a tensor on `device`) extended `block_cols` columns at a
+    time on `device` into an (N_ext, C) host tensor (``dev.host_empty``:
+    page-locked beside a GPU); the device holds one block and its
+    extension at a time.  Each extended block is handed to
+    ``on_block(c0, block)`` on the device before it is copied back, so
+    the caller can hash it while it is there (each block crosses the bus
+    once each way).  Equal to ``extend_pol`` column for column."""
+    device = torch.device(device)
+    n_ext = 1 << nbits_ext
+    width = a.shape[1]
+    out = dev.host_empty((n_ext, width), device)
+    stage = None
+    if device.type == "cuda" and width:
+        stage = torch.empty(n_ext * min(block_cols, width), dtype=gl.DTYPE,
+                            pin_memory=True)
+    for c0 in range(0, width, block_cols):
+        w = min(block_cols, width - c0)
+        if isinstance(a, np.ndarray):
+            blk = gl.from_u64_np(a[:, c0:c0 + w], device)
+        else:
+            blk = a[:, c0:c0 + w].to(device).contiguous()
+        ext = extend_pol(blk, nbits_ext, shift)
+        del blk
+        if on_block is not None:
+            on_block(c0, ext)
+        if stage is None:
+            out[:, c0:c0 + w] = ext
+        else:
+            host = stage[:n_ext * w].view(n_ext, w)
+            dev.copy(host, ext)
+            dev.copy(out[:, c0:c0 + w], host)
+        del ext
+    return out

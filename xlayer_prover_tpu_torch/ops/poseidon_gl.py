@@ -7,7 +7,8 @@ Counterpart of ``xlayer_prover_tpu/ops/poseidon_gl.py``:
     (``csrc/poseidon_gl.cu``); on a CPU tensor it runs the plain version
     ``_permute_plain``, the round loop of the JAX ``permute_u64``.
   * ``linear_hash``: rows of any width -> 4-element digests (RATE-8
-    chunks chained through the capacity), as MerkleTreeGL's leaf hash.  On
+    chunks chained through the capacity, which a caller may carry in
+    from the row's earlier column blocks), as MerkleTreeGL's leaf hash.  On
     a CUDA tensor it launches the ``poseidon_linear_hash`` kernel; on a
     CPU tensor it runs ``_linear_hash_plain``.
     An internal Merkle node, permute(left4 || right4 || 0^4)[0:4], is the
@@ -345,12 +346,14 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _linear_hash_plain(rows, width: int):
+def _linear_hash_plain(rows, width: int, capacity=None):
     """Plain PyTorch version of the poseidon_linear_hash kernel: RATE-8
     chunks (the last zero-padded) absorbed through _permute_plain with
-    the previous digest as capacity (zero-seeded)."""
+    the previous digest as capacity, seeded by `capacity` (zero if
+    None)."""
     batch = rows.shape[0]
-    digest = gl.zeros((batch, CAPACITY), rows.device)
+    digest = gl.zeros((batch, CAPACITY), rows.device) if capacity is None \
+        else capacity
     for start in range(0, width, RATE):
         n = min(RATE, width - start)
         parts = [rows[:, start:start + n]]
@@ -361,23 +364,37 @@ def _linear_hash_plain(rows, width: int):
     return digest.contiguous()
 
 
-def linear_hash(rows, width: int):
+def linear_hash(rows, width: int, capacity=None):
     """Hash (batch, width) rows to (batch, 4) digests.
 
-    width <= 4 returns the zero-padded row (no kernel); otherwise RATE
-    chunks are absorbed with the previous digest as capacity.  Wrapper of
-    the ``poseidon_linear_hash`` kernel: a CPU tensor takes the plain
-    version."""
+    RATE chunks are absorbed with the previous digest as capacity, the
+    first with `capacity` ((batch, 4), the digest of the row's earlier
+    RATE-aligned columns) or zero.  A one-shot row (no `capacity`) of
+    width <= 4 returns the zero-padded row (no kernel).  `rows` may be a
+    column block of a wider tensor (unit column stride): the kernel reads
+    it in place.  Wrapper of the ``poseidon_linear_hash`` kernel: a CPU
+    tensor takes the plain version."""
     if rows.dim() != 2 or rows.shape[1] != width:
         raise ValueError(f"linear_hash: (n, {width}) rows expected, got "
                          f"{tuple(rows.shape)}")
     batch = rows.shape[0]
-    if width <= CAPACITY:
+    if capacity is not None and (tuple(capacity.shape) != (batch, CAPACITY)
+                                 or capacity.device != rows.device):
+        raise ValueError(f"linear_hash: capacity ({batch}, {CAPACITY}) on "
+                         f"{rows.device} expected, got "
+                         f"{tuple(capacity.shape)} on {capacity.device}")
+    if capacity is None and width <= CAPACITY:
         return torch.cat([rows, gl.zeros((batch, CAPACITY - width),
                                          rows.device)], dim=1)
     if rows.device.type == "cpu":
-        return _linear_hash_plain(rows, width)
-    _check_cuda("linear_hash", rows)
+        return _linear_hash_plain(rows, width, capacity)
+    if rows.dtype != gl.DTYPE or (width > 1 and rows.stride(1) != 1):
+        raise ValueError("linear_hash: int64 rows of unit column stride "
+                         "expected")
+    if rows.device.type != "cuda":
+        raise ValueError(f"linear_hash: tensor on {rows.device}")
+    if capacity is not None:
+        _check_cuda("linear_hash capacity", capacity)
     out = torch.empty((batch, HASH_SIZE), dtype=rows.dtype,
                       device=rows.device)
     if batch == 0:
@@ -385,7 +402,8 @@ def linear_hash(rows, width: int):
     lib = _poseidon_lib(rows.device)
     kernels.LAUNCHES["poseidon_linear_hash"] += 1
     kernels.check(lib.poseidon_linear_hash_launch(
-        rows.data_ptr(), out.data_ptr(), batch, width,
+        rows.data_ptr(), None if capacity is None else capacity.data_ptr(),
+        out.data_ptr(), batch, width, rows.stride(0),
         kernels.stream_ptr(rows.device)), "poseidon_linear_hash_launch")
     return out
 

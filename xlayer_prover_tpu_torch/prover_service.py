@@ -86,6 +86,10 @@ class BatchProver:
     reference's preloaded const pols + const tree (starks.hpp:93-191).
     """
 
+    # the last proof's section plan, windows, copies and peaks
+    # (stark.prover.gen_proof's stats)
+    stark_stats = None
+
     def __init__(self, rom, n_bits: int = 16, chunk_bits: int = 4,
                  limb_bits: int = 16, n_queries: int = 8,
                  max_steps: int = 1 << 22, storage_rom=None, device=None):
@@ -115,10 +119,10 @@ class BatchProver:
                 self._setup = stark_prover.Setup.load(
                     constants_tree_file, self.air, device=self.device)
                 return self._setup
-            from .models.zkevm import zkevm_air
-            const_np = zkevm_air.fill_fixed(self.air, self.executor.layout)
-            self._setup = stark_prover.Setup.build(self.air, const_np,
-                                                   device=self.device)
+            # the executor's constants, filled once for its executions
+            # and this Setup
+            self._setup = stark_prover.Setup.build(
+                self.air, self.executor.fixed(), device=self.device)
             if constants_tree_file:
                 self._setup.save(constants_tree_file)
         return self._setup
@@ -137,17 +141,23 @@ class BatchProver:
                          timings: dict | None = None):
         """STARK over a previously committed trace (resume-without-
         re-execution, the reference's mmap'd cmPols re-run path).
-        `timings` receives the seconds of each round
+        `timings` receives the seconds of each round, and
+        ``stark_stats`` the section plan, windows, copies and peaks
         (``stark.prover.gen_proof``)."""
-        return stark_prover.gen_proof(self.setup(), cm1_np, publics,
-                                      timings=timings,
-                                      abort_check=abort_check)
+        stats: dict = {}
+        proof = stark_prover.gen_proof(self.setup(), cm1_np, publics,
+                                       timings=timings,
+                                       abort_check=abort_check, stats=stats)
+        self.stark_stats = stats
+        return proof
 
     def prove(self, batch_input, batch_uuid: str = "batch",
               abort_check=None, timings: dict | None = None):
         """Run the batch and prove it.  Returns (StarkProof, Context).
         `timings` receives the seconds of the execution (``execute_s``),
-        of the STARK (``stark_s``) and of its rounds (``rounds_s``)."""
+        of the STARK (``stark_s``) and of its rounds (``rounds_s``), and
+        the STARK's section plan, windows, copies and peaks
+        (``stark_stats``) where the engine records them."""
         t0 = time.perf_counter()
         res = self.execute_only(batch_input, batch_uuid)
         t1 = time.perf_counter()
@@ -159,6 +169,8 @@ class BatchProver:
             timings.update(execute_s=t1 - t0,
                            stark_s=time.perf_counter() - t1,
                            rounds_s=rounds)
+            if self.stark_stats is not None:
+                timings["stark_stats"] = self.stark_stats
         return proof, res.ctx
 
     # -- artifact persistence (reference saveInput/Output/ProofToFile +

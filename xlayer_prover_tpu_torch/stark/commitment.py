@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..fields import gl
-from ..ops import merkle
+from ..ops import merkle, ntt
 from ..ops.bn254_mont import from_words
 from ..ops import poseidon_bn254 as pbn
 from ..ops.poseidon_gl import host_linear_hash, host_permute
@@ -46,11 +46,24 @@ class GLScheme:
     def merkelize(self, rows, width: int):
         return merkle.merkelize(rows, width)
 
+    def extend_and_commit(self, section, nbits_ext: int, block_cols: int,
+                          device):
+        """A section's LDE kept in host memory, and its tree on `device`:
+        column blocks of `block_cols` (a multiple of RATE) extended on
+        the device (``ntt.extend_pol_blocks``), each absorbed into the
+        leaf digests while it is there.  -> (host tensor, tree)"""
+        leaves = merkle.LeafDigests(section.shape[1])
+        ext = ntt.extend_pol_blocks(section, nbits_ext, block_cols, device,
+                                    on_block=lambda c0, blk:
+                                    leaves.absorb(blk))
+        return ext, leaves.tree(1 << nbits_ext, device)
+
     def root(self, tree) -> List[int]:
         return [int(v) for v in tree.root_np()]
 
     def open_many(self, tree, source, idxs):
-        """All openings of one tree: one row gather and one sibling-path
+        """All openings of one tree: one row gather (on the device, or in
+        host memory for a host-resident source) and one sibling-path
         gather on the device, one host pull each."""
         rows = merkle.gather_rows(source, idxs)
         paths = merkle.get_proofs_batch(tree, idxs)

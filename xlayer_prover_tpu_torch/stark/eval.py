@@ -1,8 +1,8 @@
 """Constraint-expression evaluation over whole-column tensors.
 
 Counterpart of ``xlayer_prover_tpu/stark/eval.py``: the expression DAG is
-evaluated as tensor ops over full columns, one code path for every
-circuit.  Values are tagged ('base', tensor) or ('ext', triple) so
+evaluated as tensor ops over full columns, or over a window of rows of
+the domain, one code path for every circuit.  Values are tagged ('base', tensor) or ('ext', triple) so
 base-field subtrees do not pay the 3x extension cost; promotion happens at
 the first mixed op.  ``ScalarEnv`` is the verifier's Python-int evaluator.
 """
@@ -27,20 +27,28 @@ class EvalEnv:
     shift_rows: row distance of "next" (1 on H, blowup on the ext domain).
     refcounts: optional ``count_refs`` map; an entry of the memo is then
     dropped after its last use, so peak memory is the live frontier.
+    window: None for whole columns (a shifted column is rolled, once per
+    env); else the number of rows B of a window [r0, r0 + B) of the
+    domain, and each section holds the window and its halo: row j is
+    domain row (r0 + j) mod rows, for j < B + max_shift * shift_rows
+    (``halo_rows``).  A column shifted by s is then the slice
+    [s * shift_rows, s * shift_rows + B) of its section, with no copy;
+    x and l1 hold the window's B rows.
     """
 
     def __init__(self, sections, challenges, publics, x, l1, shift_rows: int,
-                 refcounts=None):
+                 refcounts=None, window: int | None = None):
         self.sections = sections
         self.challenges = challenges
         self.publics = publics
         self.x = x
         self.l1 = l1
         self.shift_rows = shift_rows
+        self.window = window
         self.device = x.device
         self._memo = {}
-        # the same (section, index, shift) appears in many Col nodes: roll
-        # each shifted column once per env
+        # whole columns: the same (section, index, shift) appears in many
+        # Col nodes, so each shifted column is rolled once per env
         self._col_cache = {}
         self._consts = {}
         self._remaining = dict(refcounts) if refcounts else None
@@ -112,6 +120,14 @@ class EvalEnv:
         return v
 
     def _col_values(self, c: Col):
+        if self.window is not None:
+            off = c.shift * self.shift_rows
+            block = self.sections[c.section][off:off + self.window,
+                                             c.index:c.index + c.dim]
+            if block.shape[0] != self.window:
+                raise ValueError(f"EvalEnv: section {c.section!r} holds "
+                                 f"too short a halo for shift {c.shift}")
+            return self._tagged(block, c.dim)
         shifted = bool(c.shift and self.shift_rows)
         key = (c.section, c.index, c.dim, c.shift) if shifted else None
         if key is not None:
@@ -121,13 +137,16 @@ class EvalEnv:
         block = self.sections[c.section][:, c.index:c.index + c.dim]
         if shifted:
             block = torch.roll(block, -c.shift * self.shift_rows, dims=0)
-        if c.dim == 1:
-            res = ("base", block[:, 0])
-        else:
-            res = ("ext", tuple(block[:, k] for k in range(3)))
+        res = self._tagged(block, c.dim)
         if key is not None:
             self._col_cache[key] = res
         return res
+
+    @staticmethod
+    def _tagged(block, dim: int):
+        if dim == 1:
+            return ("base", block[:, 0])
+        return ("ext", tuple(block[:, k] for k in range(3)))
 
     def _const(self, v: int):
         t = self._consts.get(v)
@@ -233,3 +252,25 @@ def count_refs(roots) -> dict:
                 counts[id(ch)] = counts.get(id(ch), 0) + 1
                 stack.append(ch)
     return counts
+
+
+def max_shift(roots) -> int:
+    """The largest row shift of a Col in the expressions `roots`."""
+    best = 0
+    seen = set()
+    stack = list(roots)
+    while stack:
+        e = stack.pop()
+        if id(e) in seen:
+            continue
+        seen.add(id(e))
+        if isinstance(e, Col):
+            best = max(best, int(e.shift))
+        elif isinstance(e, BinOp):
+            stack.extend((e.a, e.b))
+    return best
+
+
+def halo_rows(roots, shift_rows: int) -> int:
+    """Rows a window's sections hold past its end for `roots`' shifts."""
+    return max_shift(roots) * shift_rows

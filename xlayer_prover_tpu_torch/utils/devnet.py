@@ -320,14 +320,20 @@ def encode_datastream(*, batch_number: int, chain_id: int, fork_id: int,
 
 DEVNET_CHAIN_ID = 1001
 DEVNET_PRIV1, DEVNET_PRIV2 = 0xA11CE, 0xB0B
-# the JAX package's devnet geometry (tools/run_a7_cascade.py:234-239 with
-# --n-bits 16 --n-queries 4)
-DEVNET_GEOMETRY = {"n_bits": 16, "chunk_bits": 4, "limb_bits": 16,
-                   "n_queries": 4, "max_steps": 1 << 15}
+def devnet_geometry(n_bits: int, n_queries: int = 4) -> dict:
+    """The devnet BatchProver's geometry at `n_bits`, as
+    tools/run_a7_cascade.py:236-239 makes it: chunk_bits 4, limb_bits 16,
+    max_steps 2^(n_bits - 1)."""
+    return {"n_bits": n_bits, "chunk_bits": 4, "limb_bits": 16,
+            "n_queries": n_queries, "max_steps": 1 << (n_bits - 1)}
+
+
+# the JAX package's devnet geometry (the tool with --n-bits 16
+# --n-queries 4)
+DEVNET_GEOMETRY = devnet_geometry(16)
 # the same tool with --n-bits 18 --n-queries 4: the smallest geometry at
 # which the Keccak-F and SHA-256-F chains are on (one gate slot each)
-DEVNET_CHAINS_GEOMETRY = {"n_bits": 18, "chunk_bits": 4, "limb_bits": 16,
-                          "n_queries": 4, "max_steps": 1 << 17}
+DEVNET_CHAINS_GEOMETRY = devnet_geometry(18)
 
 
 def devnet_prover(device=None, geometry=None):
