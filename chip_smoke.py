@@ -17,7 +17,10 @@
                                      # (main.py as processes, devnet
                                      # batch 0 served over gRPC), then
                                      # the streamed sections: batch 0 at
-                                     # 2^18 under 16 GiB and at 2^20
+                                     # 2^18 under 16 GiB and at 2^20;
+                                     # after phase 8, phase 13: the
+                                     # devnet root's final circuit under
+                                     # fflonk
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -173,6 +176,29 @@ Phases (any failure exits non-zero and prints no result line):
      execution, STARK by round, verification, rows a second, peak device
      and host memory, the host <-> device copies' seconds and GB/s and
      the launches print as the ``chains_2e20`` line.
+ 13. the PLONK conversion and the fflonk wrap, run after phase 8 (which
+     it reads): (b) the seeded R1CS of tests/data/fflonk_seeded_n12.json
+     (``plonk.seeded_r1cs``: 3,979 gates, n = 2^12) converted, set up and
+     proven with random.Random(its rng seed): the verifying key, the
+     proving key's parts (by sha256) and the proof equal to the JAX
+     package's file, verified; (c) the devnet root's final circuit, phase
+     8's R1CS and witness (kept from the cascade's finalize, no second
+     build), launches counted from 0 and the peak reset first:
+     ``plonk.r1cs_to_arrays`` (one host pass with the witness), then
+     ``fflonk.setup`` and ``fflonk.prove`` with random.Random(11), the
+     cascade's seed, on the card; ``fflonk.verify`` must accept, and
+     refuse the proof with its z evaluation changed and with a changed
+     public; the gates, n, SRS points, the conversion's, setup's
+     (by part) and proof's seconds (NTTs, the identities, divisions,
+     evaluations, each commitment), verification's, the peaks and the
+     launches print as the ``fflonk`` line; (a) fr_eval,
+     fr_div_binomial, fr_scan_mul and fr_pointwise bit-equal to their
+     plain versions at small shapes (level and chain boundaries)
+     and at 2^20 rows of each devnet use, then timed at (c)'s shapes
+     with their bounds (the kernels line's rows, ``launches`` from the
+     ``fflonk`` path); fr_ntt at 2^26 and 2^27: the round trip, and 8
+     positions of the forward transform equal to fr_eval's values there
+     and to the host's sums for a 3-term input.
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
 versions (and prints how many warps of each an SM holds):
 poseidon_bn254_permute at every width t = 2..17 on 3 states fewer and 5
@@ -207,11 +233,16 @@ the host-built ones, their cold build timed on the host; fr_mul_sub at
 scalars and points, 2^21 values).  The cascade's final stage builds its
 twiddle tables anew; phase 8 prints h's split (g16_h_eval_s,
 g16_h_ntt_s).
+Phase 2 times each plain version on the call it is held against (one
+call) and its kernels over few repetitions, which leaves room for phase
+13 in the time limit; the checks are the same.
 It prints a ``{"kernels": [...]}`` line (``launches``: the count on the
-cascade, the main path that launches every kernel, 0 included;
+cascade, the main path that launches every kernel, 0 included, and for
+fflonk's four kernels the count on the ``fflonk`` path;
 ``launches_by_path`` has every path's, the cascade's batch, recursion and
 final parts, ``chains_2e18``, phase 10's, ``entry_2e16``, phase 11's (c),
-``stream_2e18`` and ``chains_2e20``, phase 12's (b) and (c))
+``stream_2e18`` and ``chains_2e20``, phase 12's (b) and (c), and
+``fflonk``, phase 13's (c))
 and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -249,6 +280,8 @@ G16_KERNELS = ("bn254_msm_g1", "bn254_msm_g2", "bn254_fixed_base_g1",
                "fr_mul_sub")
 FINAL_KERNELS = ("poseidon_bn254_leaf_hash", "poseidon_bn254_permute",
                  "gl_mul", *G16_KERNELS)
+FFLONK_KERNELS = ("fr_eval", "fr_div_binomial", "fr_scan_mul",
+                  "fr_pointwise")
 # the paths driven with the launch counts set to 0 just before: each must
 # launch these kernels
 PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
@@ -259,7 +292,9 @@ PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
                 "chains_2e18": GL_PATH_KERNELS,
                 "entry_2e16": GL_PATH_KERNELS,
                 "stream_2e18": GL_PATH_KERNELS,
-                "chains_2e20": GL_PATH_KERNELS}
+                "chains_2e20": GL_PATH_KERNELS,
+                "fflonk": (*FFLONK_KERNELS, "fr_ntt", "fr_ntt_twiddles",
+                           "bn254_msm_g1", "bn254_fixed_base_g1")}
 # the cascade's parts (``cascade_groups``): each stage of a part must
 # launch these kernels
 STAGE_KERNELS = {"cascade_batches": GL_PATH_KERNELS,
@@ -526,13 +561,12 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
         P, (1 << 64) - 1, size=(64, 12), dtype=np.uint64, endpoint=True)
     t = gl.from_u64_np(states, cuda)
     got = poseidon_gl.permute(t)
-    ref = poseidon_gl._permute_plain(t)
-    torch.cuda.synchronize()
+    # the plain version timed on the call it is held against (one call)
+    ref, plain_ms = _timed(torch, lambda: poseidon_gl._permute_plain(t))
     err = _max_abs_err(got, ref)
     _require(err == 0, "poseidon_permute equals its plain version")
     del got, ref
-    ms = _cuda_ms(lambda: poseidon_gl.permute(t), 20)
-    plain_ms = _cuda_ms(lambda: poseidon_gl._permute_plain(t), 2)
+    ms = _cuda_ms(lambda: poseidon_gl.permute(t), 10)
     rows.append({
         "name": "poseidon_permute", "route": "cuda",
         "more_shapes": [],
@@ -578,7 +612,7 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
     del got, ref
     torch.cuda.empty_cache()
     ms = _cuda_ms(lambda: poseidon_gl.linear_hash(leaves, 39), 5)
-    level_ms = _cuda_ms(lambda: poseidon_gl.linear_hash(level, 8), 20)
+    level_ms = _cuda_ms(lambda: poseidon_gl.linear_hash(level, 8), 10)
     print(f"kernel poseidon_linear_hash at [1048576, 8] (first tree level): "
           f"{level_ms:.4f} ms (bound "
           f"{poseidon_mul32() * (1 << 20) / int_rate * 1e3:.4f} ms by "
@@ -614,8 +648,8 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
                        dtype=torch.int64, device=cuda)
     err = max(err, _max_abs_err(gl.gl_mul(ta, tb), gl._mul_plain(ta, tb)))
     _require(err == 0, "gl_mul equals its plain version")
-    ms = _cuda_ms(lambda: gl.gl_mul(ta, tb), 50)
-    plain_ms = _cuda_ms(lambda: gl._mul_plain(ta, tb), 3)
+    ms = _cuda_ms(lambda: gl.gl_mul(ta, tb), 20)
+    plain_ms = _cuda_ms(lambda: gl._mul_plain(ta, tb), 1)
     rows.append({
         "name": "gl_mul", "route": "cuda",
         "more_shapes": [],
@@ -686,19 +720,20 @@ def phase_bn254_kernels(torch, rng):
     n = 1 << 20
     x = gl.from_u64_np(fr_states(n, 17), cuda)
     head = x[:1 << 16]
-    err = max(err, _max_abs_err(pbn.permute(head, 17),
-                                pbn._permute_plain(head, 17)))
+    # the plain version timed on the call it is held against (one call)
+    ref, plain_ms = _timed(torch, lambda: pbn._permute_plain(head, 17))
+    err = max(err, _max_abs_err(pbn.permute(head, 17), ref))
+    del ref
     level = x[:8192]
     err = max(err, _max_abs_err(pbn.permute(level, 17),
                                 pbn._permute_plain(level, 17)))
     _require(err == 0, "poseidon_bn254_permute equals its plain version")
-    ms = _cuda_ms(lambda: pbn.permute(x, 17), 3)
+    ms = _cuda_ms(lambda: pbn.permute(x, 17), 2)
     level_ms = _cuda_ms(lambda: pbn.permute(level, 17), 5)
     level_bound, _ = _bound_ms(bn254_permute_work(8192), int_rate)
     print(f"kernel poseidon_bn254_permute at [8192, 17, 4] (a 2^17-leaf "
           f"tree's first level): {level_ms:.4f} ms (bound "
           f"{level_bound:.4f} ms)", flush=True)
-    plain_ms = _cuda_ms(lambda: pbn._permute_plain(head, 17), 1)
     rows = [{
         "name": "poseidon_bn254_permute", "route": "cuda",
         "source": "xlayer_prover_tpu_torch/csrc/poseidon_bn254.cu",
@@ -740,7 +775,7 @@ def phase_bn254_kernels(torch, rng):
     err = max(err, _max_abs_err(got, ref))
     _require(err == 0, "poseidon_bn254_leaf_hash equals its plain version")
     del got, ref
-    ms = _cuda_ms(lambda: pbn.leaf_hash(leaves, width), 3)
+    ms = _cuda_ms(lambda: pbn.leaf_hash(leaves, width), 2)
     rows.append({
         "name": "poseidon_bn254_leaf_hash", "route": "cuda",
         "more_shapes": [],
@@ -857,7 +892,7 @@ def phase_g16_kernels(torch, rng):
                  "r - 2 equals the host's")
         big_sc = words([int.from_bytes(rng.bytes(32), "little") % r
                         for _ in range(big)])
-        ms = _cuda_ms(lambda: fn(gen, big_sc), 2)
+        ms = _cuda_ms(lambda: fn(gen, big_sc), 1)
         rows.append({
             "name": f"bn254_fixed_base_{group}", "route": "cuda",
             "more_shapes": [],
@@ -903,7 +938,7 @@ def phase_g16_kernels(torch, rng):
                       f"model: {torch.equal(got, model)}", flush=True)
         _require(affine(fn(pts, torch.zeros_like(sc))) is None,
                  f"bn254_msm_{group} of zero scalars is infinity")
-        ms = _cuda_ms(lambda: fn(pts, sc), 3)
+        ms = _cuda_ms(lambda: fn(pts, sc), 2)
         stages = []
         bn254_msm._msm(f"bn254_msm_{group}", ops, pts, sc, stages=stages)
         torch.cuda.synchronize()
@@ -975,7 +1010,7 @@ def phase_g16_kernels(torch, rng):
             tw_err = _max_abs_err(ntt_fr.expand_twiddles(lo, hi), ref)
             _require(tw_err == 0, "fr_ntt_twiddles equals its plain "
                      "version")
-            ms = _cuda_ms(lambda: ntt_fr.expand_twiddles(lo, hi), 20)
+            ms = _cuda_ms(lambda: ntt_fr.expand_twiddles(lo, hi), 10)
             count = lo.shape[0] * hi.shape[0]
             tw_rows.append({
                 "name": "fr_ntt_twiddles", "route": "cuda",
@@ -1006,7 +1041,7 @@ def phase_g16_kernels(torch, rng):
         m = vals.shape[0]
         _require(device_launches == len(ntt_fr._passes(m.bit_length() - 1))
                  <= 3, f"fr_ntt at {m} makes one device launch a pass")
-        k_ms = _cuda_ms(lambda: ntt_fr.ntt(vals, inverse), 10)
+        k_ms = _cuda_ms(lambda: ntt_fr.ntt(vals, inverse), 5)
         bound, by = _bound_ms(ntt_work(m, inverse), int_rate)
         shapes.append({"shape": [m, 4], "inverse": inverse, "ms": k_ms,
                        "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
@@ -1033,7 +1068,7 @@ def phase_g16_kernels(torch, rng):
                                 ntt_fr._mul_sub_plain(edge, edge.flip(0),
                                                       edge)))
     _require(err == 0, "fr_mul_sub equals its plain version")
-    ms = _cuda_ms(lambda: ntt_fr.mul_sub(x, y, z), 20)
+    ms = _cuda_ms(lambda: ntt_fr.mul_sub(x, y, z), 10)
     plain_ms = _cuda_ms(lambda: ntt_fr._mul_sub_plain(x, y, z), 1)
     rows.append({
         "name": "fr_mul_sub", "route": "cuda",
@@ -1327,6 +1362,8 @@ def phase_cascade(torch):
         for name, fn in wrapped.items():
             setattr(pbn, name, fn)
     launches = dict(kernels.LAUNCHES)
+    _require(cas.stack.final_circuit is not None,
+             "the final stage kept its R1CS and witness")
     _require(record["status"] == "complete" and record["verified"],
              "the cascade completed and its Groth16 proof verified")
     _require(all(isinstance(v, float) == (k not in read_back)
@@ -2610,6 +2647,423 @@ def phase_stream_2e20(torch, prep: dict) -> dict:
     return launches
 
 
+# -- phase 13: the PLONK conversion and the fflonk wrap ---------------------
+
+FFLONK_SOURCE = "xlayer_prover_tpu_torch/csrc/fr_poly.cu"
+# phase 13 (b): the JAX package's fflonk keys and proof of a seeded R1CS
+# (tools/torch_proof_fixtures.py fflonk_seeded_n12)
+FFLONK_FIXTURE = os.path.join(REPO, "tests", "data",
+                              "fflonk_seeded_n12.json")
+FFLONK_RNG = 11                    # (c): the cascade's seed
+PLAIN_SAMPLE = 1 << 20             # (a): the rows held against plain
+
+
+def fr_poly_work(name: str, **kw) -> dict:
+    """Bytes and 32-bit multiplies of one call of a fr_poly kernel's
+    function, whatever computes it: each input read and each output
+    written once, a Montgomery product (FR_MUL) for each product the
+    function needs.  fr_eval: n coefficients, m points (a product a
+    coefficient a point); fr_div_binomial: n coefficients by X^k - c (a
+    product a quotient and a remainder value by the recurrence
+    q_j = p_{j+k} + c q_{j+k}, none where c = 1); fr_scan_mul: n outputs of n inputs (or
+    one repeated), a product each; fr_pointwise: `inputs` vectors of n
+    values, `outputs` of n, `products` a value, the fewest the identity
+    needs: the gate a (qM b + qL) + qR b + qO c + qC + PI 4; perm_z 9,
+    the domain point x = w^i 1, beta x 1 (K1 beta x and K2 beta x are
+    additions: K1 = 2, K2 = 3), beta S1..S3 3 and each side's three
+    factors 2 and 2; perm_t2 those 9 and z num - z(w x) den 2, 11; a
+    linear combination one a term.  With `domain`, the identity reads
+    x: the work is then either design, x computed (its product counted)
+    or x read from a table of n values (32 bytes more a value, a
+    product fewer), and `timed` takes the lesser bound of the two."""
+    if name == "fr_eval":
+        n, m = kw["n"], kw["m"]
+        return {"bytes": 32 * (n + m), "ops": n * m * FR_MUL}
+    if name == "fr_div_binomial":
+        n, k = kw["n"], kw["k"]
+        products = 0 if kw["c"] == 1 else max(0, n - k) + k
+        return {"bytes": 32 * (n + max(0, n - k) + k),
+                "ops": products * FR_MUL}
+    if name == "fr_scan_mul":
+        n = kw["n"]
+        return {"bytes": 32 * ((1 if kw.get("repeated") else n) + n),
+                "ops": n * FR_MUL}
+    n = kw["n"]
+    work = {"bytes": 32 * n * (kw["inputs"] + kw["outputs"]),
+            "ops": n * kw["products"] * FR_MUL}
+    if not kw.get("domain"):
+        return work
+    return [work, {"bytes": work["bytes"] + 32 * n,
+                   "ops": work["ops"] - n * FR_MUL}]
+
+
+def _rand_fr(torch, n: int, dev, gen=None):
+    """(n, 4) words below 2^252 (< r), the first rows 0, 1, r - 1 and
+    r - 2."""
+    from xlayer_prover_tpu_torch.fields.bn254 import R as r
+    from xlayer_prover_tpu_torch.ops.bn254_mont import to_words
+    x = torch.randint(0, 1 << 62, (n, 4), dtype=torch.int64, device=dev,
+                      generator=gen)
+    x[:, 3] &= (1 << 60) - 1
+    head = torch.from_numpy(to_words([0, 1, r - 1, r - 2])).to(dev)
+    x[:min(4, n)] = head[:min(4, n)]
+    return x
+
+
+def phase_fflonk_kernels(torch, n: int) -> list:
+    """Phase 13 (a): fr_eval, fr_div_binomial, fr_scan_mul and
+    fr_pointwise each held bit for bit against its plain version on the
+    card at small shapes (the edges of a level and of a chain: 1, 33 and
+    4,101 values, k = 1, 3, 8, 9, 2^10, broadcast scans, inputs of their
+    own lengths, domains of 1, 2^5 and 2^15) and at PLAIN_SAMPLE rows of
+    each devnet use (fr_pointwise: T2's identity, perm_z, the gate and a
+    4-input linear combination of ragged lengths), then
+    timed at the devnet root's shapes of (c) (n = its domain): fr_eval over
+    9n values at 1 and 2 points (C2, W', the 15 evaluations),
+    fr_div_binomial by X - y over 9n values and by X^n - 1 over 8n,
+    fr_scan_mul as tau^i over 10 n + 41 and z's running product over n,
+    fr_pointwise's T2 identity over 8n, the gate over 4n, the permutation
+    over n and L's combination of 4 inputs over 9n.  fr_ntt at 2^26 (the
+    devnet root's 8n domain) and 2^27 (a circuit twice its size; Fr's
+    domains stop at 2^28): the round trip, and the forward
+    transform at 8 positions equal to the polynomial's values there
+    (fr_eval) and, for a 3-term input, to the host's.  -> the rows"""
+    import random
+
+    from xlayer_prover_tpu_torch.fields.bn254 import R as r
+    from xlayer_prover_tpu_torch.ops import fr_poly, ntt_fr
+    from xlayer_prover_tpu_torch.ops.bn254_mont import from_words, to_words
+
+    cuda = torch.device("cuda")
+    int_rate = int_mul_rate(torch)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(SEED)
+    pyrng = random.Random(SEED)
+
+    def words(vals):
+        return torch.from_numpy(to_words(vals)).to(cuda)
+
+    def rand(m):
+        return _rand_fr(torch, m, cuda, gen)
+
+    err = {k: 0 for k in FFLONK_KERNELS}
+
+    def same(name, got, ref, what):
+        if isinstance(got, list):
+            e = 0 if got == ref else 1
+        else:
+            e = _max_abs_err(got, ref)
+        err[name] = max(err[name], e)
+        _require(e == 0, f"{name} equals its plain version ({what})")
+
+    plain_ms = {}
+    # -- small shapes, every edge ------------------------------------------
+    for m in (1, 33, 4096 + 5):
+        p = rand(m)
+        xs = [0, 1, r - 1, pyrng.randrange(r), pyrng.randrange(r)]
+        same("fr_eval", fr_poly.evaluate(p, xs),
+             fr_poly._eval_plain(p, xs), f"{m} values")
+        for k in (1, 3, 8, 9, 1 << 10):
+            c = pyrng.choice([0, 1, r - 1, pyrng.randrange(r)])
+            q, rem = fr_poly.div_binomial(p, k, c)
+            pq, pr = fr_poly._div_binomial_plain(p, k, c)
+            same("fr_div_binomial", q, pq, f"{m} values, k = {k}")
+            same("fr_div_binomial", rem, pr, f"{m} values, k = {k}")
+        for ex in (False, True):
+            init = pyrng.randrange(r)
+            same("fr_scan_mul", fr_poly.scan_mul(p, ex, init),
+                 fr_poly._scan_mul_plain(p, ex, init, None), f"{m} values")
+            one = words([pyrng.randrange(r)])
+            same("fr_scan_mul", fr_poly.scan_mul(one, ex, init, n=m),
+                 fr_poly._scan_mul_plain(one, ex, init, m), f"{m} repeated")
+        ins = [rand(m) for _ in range(9)]
+        ks = [pyrng.randrange(r) for _ in range(4)]
+        lens = [ins[0], ins[1][:max(1, m // 2)], ins[2][:1], ins[3]]
+        same("fr_pointwise", fr_poly.pointwise("lincomb", lens, ks),
+             fr_poly._pointwise_plain("lincomb", lens, ks, 1, 0), "lincomb")
+        same("fr_pointwise", fr_poly.pointwise("mul", ins[:2], ks[:1]),
+             fr_poly._pointwise_plain("mul", ins[:2], ks[:1], 1, 0), "mul")
+        same("fr_pointwise", fr_poly.pointwise("gate", ins),
+             fr_poly._pointwise_plain("gate", ins, [], 1, 0), "gate")
+    for bits in (0, 5, 15):
+        m = 1 << bits
+        w = ntt_fr.root_of_unity(bits)
+        ins = [rand(m) for _ in range(7)]
+        bg = [pyrng.randrange(r), pyrng.randrange(r)]
+        got = fr_poly.pointwise("perm_z", ins[:6], bg, w)
+        ref = fr_poly._pointwise_plain("perm_z", ins[:6], bg, w, 0)
+        for g, f in zip(got, ref):
+            same("fr_pointwise", g, f, f"perm_z at 2^{bits}")
+        same("fr_pointwise",
+             fr_poly.pointwise("perm_t2", ins, bg, w, 8 % m),
+             fr_poly._pointwise_plain("perm_t2", ins, bg, w, 8 % m),
+             f"perm_t2 at 2^{bits}")
+    # -- PLAIN_SAMPLE rows at each devnet use, the plain version timed ----
+    m = PLAIN_SAMPLE
+    p = rand(m)
+    y = pyrng.randrange(r)
+    got, ms = _timed(torch, lambda: fr_poly._eval_plain(p, [y, y * 7 % r]))
+    same("fr_eval", fr_poly.evaluate(p, [y, y * 7 % r]), got,
+         f"{m} values, 2 points")
+    plain_ms["fr_eval"] = ms
+    (pq, pr), ms = _timed(torch, lambda: fr_poly._div_binomial_plain(p, 1, y))
+    q, rem = fr_poly.div_binomial(p, 1, y)
+    same("fr_div_binomial", q, pq, f"{m} values by X - y")
+    same("fr_div_binomial", rem, pr, f"{m} values by X - y")
+    plain_ms["fr_div_binomial"] = ms
+    zh = 1 << 17                          # X^n - 1 at a 2^17 domain, 8n
+    pq, pr = fr_poly._div_binomial_plain(p, zh, 1)
+    q, rem = fr_poly.div_binomial(p, zh, 1)
+    same("fr_div_binomial", q, pq, f"{m} values by X^{zh} - 1")
+    same("fr_div_binomial", rem, pr, f"{m} values by X^{zh} - 1")
+    ref, ms = _timed(torch, lambda: fr_poly._scan_mul_plain(p, False, 1,
+                                                            None))
+    same("fr_scan_mul", fr_poly.scan_mul(p), ref, f"{m} values")
+    plain_ms["fr_scan_mul"] = ms
+    same("fr_scan_mul", fr_poly.scan_mul(p[5:6], True, n=m),
+         fr_poly._scan_mul_plain(p[5:6], True, 1, m), f"{m} powers")
+    w = ntt_fr.root_of_unity(20)
+    ins = [rand(m) for _ in range(7)]
+    bg = [pyrng.randrange(r), pyrng.randrange(r)]
+    ref, ms = _timed(torch, lambda: fr_poly._pointwise_plain(
+        "perm_t2", ins, bg, w, 8))
+    same("fr_pointwise", fr_poly.pointwise("perm_t2", ins, bg, w, 8), ref,
+         f"perm_t2 at {m}")
+    plain_ms["fr_pointwise"] = ms
+    for g, f in zip(fr_poly.pointwise("perm_z", ins[:6], bg, w),
+                    fr_poly._pointwise_plain("perm_z", ins[:6], bg, w, 0)):
+        same("fr_pointwise", g, f, f"perm_z at {m}")
+    ins += [rand(m) for _ in range(2)]
+    same("fr_pointwise", fr_poly.pointwise("gate", ins),
+         fr_poly._pointwise_plain("gate", ins, [], 1, 0), f"the gate at {m}")
+    lens = [ins[j][:m - 8 * j] for j in range(4)]
+    ks = [pyrng.randrange(r) for _ in range(4)]
+    same("fr_pointwise", fr_poly.pointwise("lincomb", lens, ks),
+         fr_poly._pointwise_plain("lincomb", lens, ks, 1, 0),
+         f"a 4-input lincomb at {m} to {m - 24} values")
+    del p, q, rem, pq, pr, ref, ins, lens
+    fr_poly._domain_tables.cache_clear()
+    torch.cuda.empty_cache()
+
+    # -- fr_ntt at 2^26 and 2^27 ------------------------------------------
+    for bits in (26, 27):
+        x = rand(1 << bits)
+        f, ms = _timed(torch, lambda: ntt_fr.ntt(x))
+        back = ntt_fr.ntt(f, inverse=True)
+        _require(torch.equal(back, x), f"fr_ntt round trip at 2^{bits}")
+        del back
+        wb = ntt_fr.root_of_unity(bits)
+        at = [0, 1, 2, 3, (1 << bits) - 1, (1 << (bits - 1)) + 7,
+              pyrng.randrange(1 << bits), pyrng.randrange(1 << bits)]
+        vals = fr_poly.evaluate(x, [pow(wb, j, r) for j in at])
+        _require(from_words(f[at]) == vals, f"fr_ntt at 2^{bits} equals "
+                 "the polynomial's values (fr_eval) at 8 positions")
+        sparse = torch.zeros_like(x)
+        terms = {0: 5, 3: r - 1, (1 << bits) - 2: pyrng.randrange(r)}
+        for i, v in terms.items():
+            sparse[i] = words([v])[0]
+        fs = ntt_fr.ntt(sparse)
+        host = [sum(v * pow(wb, i * j, r) for i, v in terms.items()) % r
+                for j in at]
+        _require(from_words(fs[at]) == host, f"fr_ntt at 2^{bits} equals "
+                 "the host's sums of a 3-term input at 8 positions")
+        print(f"fflonk kernels: fr_ntt at 2^{bits}: round trip, 8 positions "
+              f"vs fr_eval and vs the host; forward {ms:.3f} ms "
+              f"({len(ntt_fr._passes(bits))} passes)", flush=True)
+        del x, f, sparse, fs
+        ntt_fr._kernel_twiddles.cache_clear()
+        torch.cuda.empty_cache()
+
+    # -- timed at the devnet root's shapes (inputs are slices of one
+    # random buffer, 2^22 rows apart, so no two share a cache line) ------
+    gap = 1 << 22
+    n9 = 9 * n + 21
+    big = rand(max(10 * n + 41, 6 * gap + 8 * n, 8 * gap + 4 * n,
+                   3 * gap + n9))
+
+    def sl(j, m):
+        return big[j * gap:j * gap + m]
+
+    shapes = {k: [] for k in FFLONK_KERNELS}
+
+    def timed(name, fn, work, shape, what):
+        fn()
+        ms = _cuda_ms(fn, 2)
+        bound, by = min(_bound_ms(w, int_rate) for w in
+                        (work if isinstance(work, list) else [work]))
+        shapes[name].append({"shape": shape, "what": what, "ms": ms,
+                             "bound_ms": bound, "bound_by": by})
+        print(f"kernel {name} ({what}) at {shape}: {ms:.4f} ms (bound "
+              f"{bound:.4f} ms by {by})", flush=True)
+
+    y = pyrng.randrange(r)
+    timed("fr_eval", lambda: fr_poly.evaluate(sl(0, n9), [y, y + 1]),
+          fr_poly_work("fr_eval", n=n9, m=2), [n9, 4], "z at xi and xi w")
+    timed("fr_eval", lambda: fr_poly.evaluate(sl(0, n9), [y]),
+          fr_poly_work("fr_eval", n=n9, m=1), [n9, 4], "one point")
+    timed("fr_div_binomial", lambda: fr_poly.div_binomial(sl(0, n9), 1, y),
+          fr_poly_work("fr_div_binomial", n=n9, k=1, c=y), [n9, 4],
+          "W' = L / (X - y)")
+    timed("fr_div_binomial", lambda: fr_poly.div_binomial(sl(0, 8 * n), n, 1),
+          fr_poly_work("fr_div_binomial", n=8 * n, k=n, c=1), [8 * n, 4],
+          "T2 by X^n - 1")
+    timed("fr_scan_mul", lambda: fr_poly.scan_mul(sl(0, 1), True,
+                                                  n=10 * n + 41),
+          fr_poly_work("fr_scan_mul", n=10 * n + 41, repeated=True),
+          [10 * n + 41, 4], "tau^i")
+    timed("fr_scan_mul", lambda: fr_poly.scan_mul(sl(0, n - 1)),
+          fr_poly_work("fr_scan_mul", n=n - 1), [n - 1, 4],
+          "z's running product")
+    w8 = ntt_fr.root_of_unity((8 * n).bit_length() - 1)
+    timed("fr_pointwise", lambda: fr_poly.pointwise(
+        "perm_t2", [sl(j, 8 * n) for j in range(7)], [y, y + 2], w8, 8),
+        fr_poly_work("fr_pointwise", n=8 * n, inputs=7, outputs=1,
+                     products=11, domain=True), [8 * n, 4], "T2's identity")
+    timed("fr_pointwise", lambda: fr_poly.pointwise(
+        "gate", [sl(j, 4 * n) for j in range(9)]),
+        fr_poly_work("fr_pointwise", n=4 * n, inputs=9, outputs=1,
+                     products=4), [4 * n, 4], "the gate")
+    timed("fr_pointwise", lambda: fr_poly.pointwise(
+        "perm_z", [sl(j, n) for j in range(6)], [y, y + 2],
+        ntt_fr.root_of_unity(n.bit_length() - 1)),
+        fr_poly_work("fr_pointwise", n=n, inputs=6, outputs=2,
+                     products=9, domain=True), [n, 4],
+        "z's numerator, denominator")
+    ks = [pyrng.randrange(r) for _ in range(4)]
+    timed("fr_pointwise", lambda: fr_poly.pointwise(
+        "lincomb", [sl(j, n9 - 8 * j) for j in range(4)], ks),
+        fr_poly_work("fr_pointwise", n=n9, inputs=4, outputs=1,
+                     products=4), [n9, 4], "L")
+    del big
+    fr_poly._domain_tables.cache_clear()
+    torch.cuda.empty_cache()
+    rows = []
+    replaces = {"fr_eval": "xlayer_prover_tpu/snark/fflonk.py:88",
+                "fr_div_binomial": "xlayer_prover_tpu/snark/fflonk.py:95",
+                "fr_scan_mul": "xlayer_prover_tpu/snark/fflonk.py:210",
+                "fr_pointwise": "xlayer_prover_tpu/snark/fflonk.py:307"}
+    for name in FFLONK_KERNELS:
+        main, *more = shapes[name]
+        rows.append({"name": name, "route": "cuda", "source": FFLONK_SOURCE,
+                     "replaces": replaces[name], "max_abs_err": err[name],
+                     "ms": main["ms"], "plain_ms": plain_ms[name],
+                     "bound_ms": main["bound_ms"],
+                     "bound_by": main["bound_by"], "library_ms": None,
+                     "shape": main["shape"],
+                     "plain_shape": [PLAIN_SAMPLE, 4],
+                     "more_shapes": more, "launches_path": "fflonk"})
+    return rows
+
+
+def _fflonk_case(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def phase_fflonk_fixture(torch) -> dict:
+    """Phase 13 (b): the seeded R1CS of FFLONK_FIXTURE (its seed, its
+    constraint count) through r1cs_to_arrays, setup and prove with
+    random.Random(its rng seed) on the card: the keys (vk points, the
+    proving key's parts by digest) and the proof (c1, c2, w, w2, the 15
+    evaluations) equal to the JAX package's file; the proof verifies."""
+    import random
+
+    from xlayer_prover_tpu_torch.snark import fflonk, plonk
+
+    case = _fflonk_case(FFLONK_FIXTURE)
+    r1cs, witness = plonk.seeded_r1cs(case["seed"], case["constraints"])
+    arr = plonk.r1cs_to_arrays(r1cs, witness)
+    _require(arr.n == case["n"], "the seeded circuit's domain is the file's")
+    publics = witness[1:1 + r1cs.n_public]
+    rng = random.Random(case["rng_seed"])
+    t0 = time.perf_counter()
+    pk, vk = fflonk.setup(arr, rng=rng)
+    proof = fflonk.prove(pk, arr, publics, rng=rng)
+    prove_s = time.perf_counter() - t0
+    got = fflonk.to_json(vk, proof, publics)
+    got["pk_sha256"] = fflonk.key_digests(fflonk.key_to_host(pk))
+    for key in ("vk", "proof", "publics", "pk_sha256"):
+        _require(got[key] == case[key], f"the fixture's fflonk {key} on the "
+                 "card equals the JAX package's "
+                 f"({os.path.relpath(FFLONK_FIXTURE, REPO)})")
+    _require(fflonk.verify(vk, proof, publics), "the fixture proof verifies")
+    print(f"fflonk fixture: n = {arr.n}, {arr.n_gates} gates, keys and proof "
+          f"equal to {os.path.relpath(FFLONK_FIXTURE, REPO)} "
+          f"({prove_s:.3f} s setup + prove), verified", flush=True)
+    return {"n": arr.n, "gates": arr.n_gates, "setup_prove_s": prove_s}
+
+
+def phase_fflonk(torch, r1cs, witness) -> tuple[dict, dict, int]:
+    """Phase 13 (c): the devnet root's final circuit (phase 8's R1CS and
+    witness, kept from the cascade's finalize) under fflonk, launches
+    counted from 0 and the peak reset first: r1cs_to_arrays (one pass,
+    with the witness), setup and prove with random.Random(FFLONK_RNG),
+    verify; a proof with its z evaluation changed and the proof with a
+    changed public refused.  -> (launches, the "fflonk" line's report, n)"""
+    import dataclasses
+    import random
+
+    from xlayer_prover_tpu_torch import device, kernels
+    from xlayer_prover_tpu_torch.fields.bn254 import R as r
+    from xlayer_prover_tpu_torch.snark import fflonk, plonk
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    arr = plonk.r1cs_to_arrays(r1cs, witness)
+    plonk_s = time.perf_counter() - t0
+    publics = witness[1:1 + r1cs.n_public]
+    print(f"fflonk: {len(r1cs.constraints)} constraints -> {arr.n_gates} "
+          f"gates, n = {arr.n}, {arr.n_wires} wires, SRS {10 * arr.n + 41} "
+          f"points ({plonk_s:.3f} s)", flush=True)
+    rng = random.Random(FFLONK_RNG)
+    setup_t, prove_t = {}, {}
+    t0 = time.perf_counter()
+    pk, vk = fflonk.setup(arr, rng=rng, timings=setup_t)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    print(f"fflonk: setup {setup_s:.3f} s {json.dumps(setup_t)}, peak "
+          f"{setup_peak} B", flush=True)
+    t0 = time.perf_counter()
+    proof = fflonk.prove(pk, arr, publics, rng=rng,
+                         timings=prove_t)
+    torch.cuda.synchronize()
+    prove_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    gates = arr.n_gates
+    del pk, arr
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _require(fflonk.verify(vk, proof, publics), "the devnet root's fflonk "
+             "proof verifies")
+    verify_s = time.perf_counter() - t0
+    bad = dict(proof.evals)
+    bad["z"] = (bad["z"] + 1) % r
+    _require(not fflonk.verify(vk, dataclasses.replace(proof, evals=bad),
+                               publics),
+             "the fflonk proof with its z evaluation changed is refused")
+    changed = list(publics)
+    changed[4 + NEW_STATE_ROOT] = (changed[4 + NEW_STATE_ROOT] + 1) % r
+    _require(not fflonk.verify(vk, proof, changed),
+             "the fflonk proof with a changed public is refused")
+    report = {"card": device.smi("name,power.limit"),
+              "constraints": len(r1cs.constraints), "gates": gates,
+              "n": vk.n, "srs_points": 10 * vk.n + 41, "plonk_s": plonk_s,
+              "setup_s": setup_s, "setup_timings_s": setup_t,
+              "prove_s": prove_s, "prove_timings_s": prove_t,
+              "verify_s": verify_s, "setup_peak_bytes": setup_peak,
+              "peak_bytes": peak, "host_peak_rss_bytes": _host_peak_rss(),
+              "launches": {k: v for k, v in launches.items() if v},
+              "proof": fflonk.to_json(vk, proof, publics)["proof"]}
+    print("fflonk: the devnet root's proof verifies; a changed z evaluation "
+          "and a changed public refused", flush=True)
+    return launches, report, vk.n
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2657,10 +3111,17 @@ def main() -> int:
     air = case[0]
     rng = np.random.default_rng(SEED)
     # gl_mul is timed at one butterfly stage of the cm1 LDE
+    parts = [time.perf_counter()]
     rows = phase_kernels(torch, rng,
                          (1 << (air.n_bits_ext - 1)) * air.cm1_width)
+    parts.append(time.perf_counter())
     rows += phase_bn254_kernels(torch, rng)
+    parts.append(time.perf_counter())
     rows += phase_g16_kernels(torch, rng)
+    parts.append(time.perf_counter())
+    print("phase 2 by part, s: " + json.dumps(dict(zip(
+        ("goldilocks", "poseidon_bn254", "groth16"),
+        (b - a for a, b in zip(parts, parts[1:]))))), flush=True)
     mark("2_kernels")
     phase_fib(torch)
     by_path = {"binary_sm_2e20": phase_binary(torch, case, trace_s)}
@@ -2675,8 +3136,16 @@ def main() -> int:
     phase_batches(torch, cas)
     at_rec1 = phase_recursion(torch, cas)
     at_final = phase_final(torch, cas, calls)
+    final_r1cs = cas.stack.final_circuit
     del cas
     mark("7_8_checks")
+    fixture = phase_fflonk_fixture(torch)
+    by_path["fflonk"], fflonk_report, fflonk_n = phase_fflonk(torch,
+                                                              *final_r1cs)
+    del final_r1cs
+    fflonk_report["fixture"] = fixture
+    rows += phase_fflonk_kernels(torch, fflonk_n)
+    mark("13_fflonk")
     by_path["service_fib"] = phase_service(torch)
     mark("9_service")
     by_path["chains_2e18"], chains = phase_chains(torch)
@@ -2695,7 +3164,7 @@ def main() -> int:
             _require(launches.get(name, 0) > 0, f"{name} launched on the "
                      f"{path} path")
     for r in rows:
-        r["launches"] = by_path["cascade"][r["name"]]
+        r["launches"] = by_path[r.pop("launches_path", "cascade")][r["name"]]
         r["launches_by_path"] = {p: v.get(r["name"], 0)
                                  for p, v in by_path.items()}
         r["at_recursion_shape"] = at_rec1.get(r["name"])
@@ -2707,6 +3176,7 @@ def main() -> int:
             "plain_shape", "more_shapes", "launches_by_path",
             "at_recursion_shape", "at_final_shape"]
     print("cascade " + json.dumps(cascade_report), flush=True)
+    print("fflonk " + json.dumps(fflonk_report), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}),
           flush=True)
     print(f"total_s {time.perf_counter() - t_all:.2f}", flush=True)

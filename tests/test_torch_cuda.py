@@ -548,3 +548,99 @@ def test_groth16_on_cuda_equals_cpu(cuda_device):
         results.append((dataclasses.asdict(hpk), hvk, proof))
     assert results[0] == results[1]
     assert groth16.verify(results[0][1], results[0][2], [wit[1]])
+
+
+def _fr_words(gen, n, device):
+    """(n, 4) words below 2^252 (< r), the first rows 0, 1, r - 1, r - 2."""
+    from xlayer_prover_tpu_torch.fields.bn254 import R
+    x = gen.integers(0, 1 << 63, size=(n, 4), dtype=np.int64)
+    x[:, 3] &= (1 << 60) - 1
+    edges = bn254_mont.to_words([0, 1, R - 1, R - 2])
+    x[:min(n, 4)] = edges[:min(n, 4)]
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1025, 1 << 16])
+def test_fr_eval_kernel_matches_plain(gen, cuda_device, n):
+    from xlayer_prover_tpu_torch.fields.bn254 import R
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    p = _fr_words(gen, n, cuda_device)
+    xs = [0, 1, R - 1, 12345, 2 ** 200 + 7]
+    before = kernels.LAUNCHES["fr_eval"]
+    got = fr_poly.evaluate(p, xs)
+    assert kernels.LAUNCHES["fr_eval"] == before + 1
+    assert got == fr_poly._eval_plain(p, xs)
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 9, 1 << 12])
+def test_fr_div_binomial_kernel_matches_plain(gen, cuda_device, k):
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    for n in (1, k, k + 1, 5000, 1 << 16):
+        p = _fr_words(gen, n, cuda_device)
+        before = kernels.LAUNCHES["fr_div_binomial"]
+        q, r = fr_poly.div_binomial(p, k, 987654321)
+        assert kernels.LAUNCHES["fr_div_binomial"] == before + 1
+        pq, pr = fr_poly._div_binomial_plain(p, k, 987654321)
+        assert torch.equal(q, pq) and torch.equal(r, pr)
+
+
+def test_fr_scan_mul_kernel_matches_plain(gen, cuda_device):
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    for n in (1, 16, 17, 300, 1 << 16):
+        x = _fr_words(gen, n, cuda_device)
+        for exclusive in (False, True):
+            before = kernels.LAUNCHES["fr_scan_mul"]
+            got = fr_poly.scan_mul(x, exclusive, 777)
+            assert kernels.LAUNCHES["fr_scan_mul"] == before + 1
+            assert torch.equal(got, fr_poly._scan_mul_plain(x, exclusive,
+                                                            777, None))
+            got = fr_poly.scan_mul(x[-1:], exclusive, 5, n=n + 3)
+            assert torch.equal(got, fr_poly._scan_mul_plain(
+                x[-1:], exclusive, 5, n + 3))
+
+
+def test_fr_pointwise_kernel_matches_plain(gen, cuda_device):
+    from xlayer_prover_tpu_torch.ops import fr_poly, ntt_fr
+    for bits in (0, 4, 16):
+        n = 1 << bits
+        ins = [_fr_words(gen, n, cuda_device) for _ in range(9)]
+        ks = [3, 2 ** 250 + 1, 1, 99]
+        lens = [ins[0], ins[1][:max(1, n // 2)], ins[2][:1], ins[3]]
+        before = kernels.LAUNCHES["fr_pointwise"]
+        got = fr_poly.pointwise("lincomb", lens, ks)
+        assert kernels.LAUNCHES["fr_pointwise"] == before + 1
+        assert torch.equal(got, fr_poly._pointwise_plain("lincomb", lens, ks,
+                                                         1, 0))
+        assert torch.equal(fr_poly.pointwise("mul", ins[:2], [7]),
+                           fr_poly._pointwise_plain("mul", ins[:2], [7], 1,
+                                                    0))
+        assert torch.equal(fr_poly.pointwise("gate", ins),
+                           fr_poly._pointwise_plain("gate", ins, [], 1, 0))
+        w = ntt_fr.root_of_unity(bits)
+        for g, f in zip(fr_poly.pointwise("perm_z", ins[:6], [5, 6], w),
+                        fr_poly._pointwise_plain("perm_z", ins[:6], [5, 6],
+                                                 w, 0)):
+            assert torch.equal(g, f)
+        assert torch.equal(
+            fr_poly.pointwise("perm_t2", ins[:7], [5, 6], w, 8 % n),
+            fr_poly._pointwise_plain("perm_t2", ins[:7], [5, 6], w, 8 % n))
+
+
+def test_fflonk_on_cuda_equals_cpu(cuda_device):
+    """Setup and proof of a seeded circuit (n = 2^7) with random.Random(5)
+    on the card and on the CPU: the same keys and proof, verified."""
+    import random
+
+    from xlayer_prover_tpu_torch.snark import fflonk, plonk
+    r1cs, wit = plonk.seeded_r1cs(3, 20)
+    arr = plonk.r1cs_to_arrays(r1cs, wit)
+    pubs = wit[1:1 + r1cs.n_public]
+    results = []
+    for dev in (cuda_device, "cpu"):
+        rng = random.Random(5)
+        pk, vk = fflonk.setup(arr, rng=rng, device=dev)
+        proof = fflonk.prove(pk, arr, pubs, rng=rng)
+        results.append((fflonk.key_digests(fflonk.key_to_host(pk)),
+                        fflonk.to_json(vk, proof, pubs)))
+        assert fflonk.verify(vk, proof, pubs)
+    assert results[0] == results[1]

@@ -128,3 +128,15 @@ def test_main_file_modes_need_no_grpc():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "snark/plonk.py", "snark/fflonk.py", "ops/fr_poly.py", "stark/zkin.py",
+    "ops/blake2b.py"])
+def test_fflonk_modules_are_checked(module):
+    """The PLONK conversion, fflonk, its Fr polynomial kernels' wrappers,
+    the zkin export and Blake2b are among the sources the guard above
+    reads (each imports nothing of JAX or of the JAX package)."""
+    path = ROOT / "xlayer_prover_tpu_torch" / module
+    assert path in SOURCES
+    assert not set(_imported(ast.parse(path.read_text()))) & set(FORBIDDEN)

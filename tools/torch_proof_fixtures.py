@@ -29,6 +29,10 @@ package's ProcessStatelessBatchV2 and ProcessBatchV2 responses to
 ``utils/devnet.devnet0_executor_requests()`` (deterministic serialisation,
 hex; the requests' context ids fixed), its service's initial registers set
 as the port's are (``jax_executor_service``; a second).
+The fflonk case (``FFLONK``): ``fflonk_seeded_n12`` writes
+``tests/data/fflonk_seeded_n12.json``, the JAX package's fflonk keys (the
+verifying key, the proving key's parts by sha256) and proof of the port's
+``plonk.seeded_r1cs`` circuit at n = 2^12 (~30 s).
 The devnet batch 0 proof (``devnet_batch0_n16_q4``) is the committed
 ``a7_state_devnet/batch_proof_0vdev0_nb16_q4.json``: it is read in place
 and never rewritten, and only ``jax_proof`` proves it again.
@@ -528,6 +532,47 @@ def read_executor_devnet0() -> dict:
 
 
 EXECUTOR = "executor_devnet0"
+# the seeded R1CS of chip_smoke.py phase 13 (b): plonk.seeded_r1cs(seed,
+# constraints) of the port (3,979 gates, n = 2^12) under fflonk with
+# random.Random(rng_seed); the file records the three
+FFLONK = "fflonk_seeded_n12"
+FFLONK_CASE = {"seed": 20261018, "constraints": 760, "rng_seed": 5}
+
+
+def fflonk_case(pkg: str):
+    """The seeded R1CS of FFLONK_CASE converted by `pkg`'s plonk module.
+    -> (circuit, wire values, publics, the R1CS)"""
+    from xlayer_prover_tpu_torch.snark.plonk import seeded_r1cs
+    plonk = importlib.import_module(f"{pkg}.snark.plonk")
+    r1cs, witness = seeded_r1cs(FFLONK_CASE["seed"],
+                                FFLONK_CASE["constraints"])
+    circ = plonk.r1cs_to_plonk(r1cs)
+    vals = plonk.plonk_witness(circ, r1cs, witness)
+    return circ, vals, witness[1:1 + r1cs.n_public], r1cs
+
+
+def fflonk_seeded_jax() -> str:
+    """The JAX package's fflonk setup and proof of FFLONK_CASE (one
+    random.Random(rng_seed) for both, as the tests of its fflonk do): the
+    verifying key, proof and publics (``fflonk.to_json``), the proving
+    key's parts by sha256 (``fflonk.key_digests``), n and the gate
+    count.  -> the file's JSON text"""
+    from xlayer_prover_tpu.snark import fflonk
+    from xlayer_prover_tpu_torch.snark import fflonk as port_fflonk
+    circ, vals, publics, _r1cs = fflonk_case("xlayer_prover_tpu")
+    rng = random.Random(FFLONK_CASE["rng_seed"])
+    pk, vk = fflonk.setup(circ, rng=rng)
+    proof = fflonk.prove(pk, circ, vals, publics, rng=rng)
+    assert fflonk.verify(vk, proof, publics)
+    out = {**FFLONK_CASE, "n": circ.n, "gates": len(circ.gates),
+           **port_fflonk.to_json(vk, proof, publics),
+           "pk_sha256": port_fflonk.key_digests(pk)}
+    return json.dumps(out, indent=1) + "\n"
+
+
+def read_fflonk() -> dict:
+    with open(os.path.join(DATA, f"{FFLONK}.json")) as f:
+        return json.load(f)
 
 
 CASES = {"binary_sm_n10_q4": binary_sm_case,
@@ -544,7 +589,8 @@ PROOFS = {"recF_devnet_root_q4": recf_devnet_root_jax,
           CHAINS_PROOF: chains_proof_jax}
 # JSON files of the JAX package that are not proofs: name -> its text,
 # written as tests/data/<name>.json
-DIGESTS = {CHAINS: chains_fixture_jax, EXECUTOR: executor_devnet0_jax}
+DIGESTS = {CHAINS: chains_fixture_jax, EXECUTOR: executor_devnet0_jax,
+           FFLONK: fflonk_seeded_jax}
 # Groth16 proofs of the JAX package: name -> (vk, proof, publics), written
 # as snarkjs files (SNARKJS_FILES) into tests/data/<name>/
 GROTH16 = {"g16_fib_bn128_r7": g16_fib_bn128_jax,

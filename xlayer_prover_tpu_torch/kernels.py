@@ -69,6 +69,20 @@ _LIBS = {
         "fr_mul_sub_launch": [_P, _P, _P, _P, ctypes.c_int64, _P],
         "fr_ntt_device_launches": [],
     }),
+    "fr_poly": ("fr_poly.cu", {
+        "fr_eval_launch": [_P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                           _P, _P, ctypes.c_int64, _P],
+        "fr_scan_mul_launch": [_P, ctypes.c_int64, ctypes.c_int64,
+                               ctypes.c_int64, _P, _P, _P, ctypes.c_int, _P],
+        "fr_lin_scan_launch": [_P, ctypes.c_int64, ctypes.c_int,
+                               ctypes.c_int64, _P, _P, ctypes.c_int64, _P, _P,
+                               _P],
+        "fr_div_short_launch": [_P, ctypes.c_int64, ctypes.c_int64, _P, _P, _P,
+                                _P],
+        "fr_pointwise_launch": [ctypes.c_int, _P, _P, ctypes.c_int, _P,
+                                ctypes.c_int, _P, _P, ctypes.c_int,
+                                ctypes.c_int64, _P, _P, ctypes.c_int64, _P],
+    }),
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -80,7 +94,8 @@ LAUNCHES = {"gl_mul": 0, "poseidon_permute": 0, "poseidon_linear_hash": 0,
             "poseidon_bn254_permute": 0, "poseidon_bn254_leaf_hash": 0,
             "bn254_msm_g1": 0, "bn254_msm_g2": 0, "bn254_fixed_base_g1": 0,
             "bn254_fixed_base_g2": 0, "fr_ntt": 0, "fr_ntt_twiddles": 0,
-            "fr_mul_sub": 0}
+            "fr_mul_sub": 0, "fr_eval": 0, "fr_div_binomial": 0,
+            "fr_scan_mul": 0, "fr_pointwise": 0}
 _loaded: dict = {}
 
 

@@ -30,6 +30,7 @@ Montgomery form of 1) brings any value below 600 p back below 3.2 p.
 from __future__ import annotations
 
 import functools
+from itertools import repeat
 
 import numpy as np
 import torch
@@ -48,7 +49,8 @@ def to_words(values) -> np.ndarray:
     """Python ints in [0, 2^256) -> (len, 4) int64 little-endian 64-bit
     words: the tensors of the BN254 kernels (Fr and Fq values, curve
     coordinates, scalars)."""
-    raw = b"".join(int(v).to_bytes(32, "little") for v in values)
+    raw = b"".join(map(int.to_bytes, map(int, values), repeat(32),
+                       repeat("little")))
     return np.frombuffer(raw, dtype=np.int64).reshape(-1, 4).copy()
 
 

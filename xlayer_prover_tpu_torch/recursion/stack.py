@@ -80,6 +80,8 @@ class RecursionStack:
         self._rec2: Recursive2 = None
         self._aux: dict = {}       # ("recF", level) -> RecursiveF,
         #                            ("g16", level) -> Groth16 (pk, vk)
+        self.final_circuit = None  # the last wrap's (R1CS, witness), for
+        #                            a second wrap of it (fflonk)
 
     # -- engines ---------------------------------------------------------
     def _ensure_pair(self):
@@ -134,7 +136,8 @@ class RecursionStack:
         "recf_proof"}, the on-chain object; ``snark=False`` stops after
         the R1CS witness check and returns {"final": "r1cs",
         "n_constraints", "publics", "proof", "recf_proof"}.  "recf_proof"
-        is the RecursiveF proof (``snark=False``'s "proof").  `timings`
+        is the RecursiveF proof (``snark=False``'s "proof"); the R1CS and
+        its witness stay in ``final_circuit``.  `timings`
         receives the seconds of the RecursiveF build (``recF_*``, when it
         is built), its proof's rounds, the R1CS build (``r1cs_s``), and
         then its check (``check_s``) or the Groth16 setup
@@ -169,6 +172,7 @@ class RecursionStack:
         r1cs, witness, _fb = final_circuit.build_final_circuit(
             eng.air, eng.setup.verkey, bn_proof)
         timings["r1cs_s"] = time.perf_counter() - t0
+        self.final_circuit = (r1cs, witness)
         publics = witness[1:1 + r1cs.n_public]
         if not snark:
             t0 = time.perf_counter()
