@@ -7,7 +7,7 @@
                                      # 2^13 rows, then the whole devnet
                                      # cascade (four batches through the
                                      # fork_9 ROM at 2^16 rows served by
-                                     # ProverService, four lifts and three
+                                     # ProverService, two lifts and two
                                      # aggregations at 2^18 rows,
                                      # RecursiveF and Groth16), then the
                                      # request path on the fib toy,
@@ -60,8 +60,11 @@ Phases (any failure exits non-zero and prints no result line):
      ``CASCADE_READ_BACK``; phase 11 proves batch 0 again as a
      GenStatelessBatchProof served by ``ProverService``); the
      recursion pair over the devnet AIR and verkey (gate AIRs at 2^18
-     rows, the zkEVM chain link), the four lifts, aggregate_01,
-     aggregate_23 and aggregate_root; verify_root; ``finalize(root,
+     rows, the zkEVM chain link), the lifts recursive1_0 and
+     recursive1_1, aggregate_01 over them and aggregate_root over
+     aggregate_01 and aggregate_23 (recursive1_2, recursive1_3 and
+     aggregate_23 read back from a7_state_devnet/, the same depth cut);
+     verify_root; ``finalize(root,
      wrap="groth16", snark=True, rng=random.Random(11))`` and Groth16's
      verify.  Every other stage must run (none resumed) and launch its
      kernels; its seconds, launches and peak device memory print as one
@@ -72,15 +75,17 @@ Phases (any failure exits non-zero and prints no result line):
      PROOF_a7_cascade_devnet.json's; batch 0 executed again, whose trace
      with a forged sRD value and whose claim of a wrong new-state-root
      public must both be refused; phase 2's kernels held bit for bit at the
-     devnet shapes (the cm1 leaves, 2^17 x 519; an LDE stage, 2^16 x 519);
-  7. the recursion checks: recursive1_0..3, aggregate_01, aggregate_23 and
-     aggregate_root, each byte-equal to its a7_state_devnet/ file and
-     verified (the root also through ``finalize(wrap="stark")``); batch
+     devnet shapes (the cm1 leaves, 2^17 x 519, against the plain version
+     on their first 2^16 rows; an LDE stage, 2^16 x 519);
+  7. the recursion checks: the four stages proven in phase 6, each
+     byte-equal to its a7_state_devnet/ file, and all seven verified (the
+     root also through ``finalize(wrap="stark")``); batch
      proof 0 with a root limb moved by one and the pair recursive1_1 +
      recursive1_0 (the wrong order) must raise ValueError at witness time,
      and the root with a payload public changed must be refused by the
      verifier; the kernels held bit for bit at the recursive1 shapes (the
-     cm1 leaves, 2^19 x 60; an LDE stage, 2^18 x 60);
+     cm1 leaves, 2^19 x 60, their first 2^16 rows against the plain
+     version; an LDE stage, 2^18 x 60);
   8. the final-stage checks: RecursiveF (recursive1 over the BN128
      commitment scheme: Poseidon-BN254 arity-16 trees, TranscriptBN128)
      over recursive2 byte-equal to the JAX package's, committed as
@@ -120,12 +125,14 @@ Phases (any failure exits non-zero and prints no result line):
      of every cm1 and const column of the request's execution, the
      executor's steps, the publics and the verkey; the proof byte-equal to
      tests/data/zkevm_devnet0_n18_chains_q4.proof.json where that JAX
-     proof was made; it verifies, and with one evaluation or one public
-     changed it is refused.  The port's ``gates.execute`` run on the card
+     proof was made; it verifies (the service verifies it before the
+     request completes), and with one evaluation or one public changed it
+     is refused.  The port's ``gates.execute`` run on the card
      over the Keccak slot's 48 input states equals
      ``execute_all_wires_np`` at the script's outputs; phase 2's kernels
      held bit for bit and timed at the chains shapes (the cm1 leaves,
-     2^19 x 669; an LDE stage, 2^18 x 669).  Its seconds
+     2^19 x 669, against the plain version on their first 2^16 rows; an
+     LDE stage, 2^18 x 669).  Its seconds
      (setup, execution, STARK by round, verification), peak memory and
      launches print as the ``chains_2e18`` line.
  11. the entry point (``xlayer_prover_tpu_torch/main.py`` and the gRPC
@@ -193,10 +200,13 @@ Phases (any failure exits non-zero and prints no result line):
      evaluations, each commitment), verification's, the peaks and the
      launches print as the ``fflonk`` line; (a) fr_eval,
      fr_div_binomial, fr_scan_mul and fr_pointwise bit-equal to their
-     plain versions at small shapes (level and chain boundaries)
-     and at 2^20 rows of each devnet use, then timed at (c)'s shapes
-     with their bounds (the kernels line's rows, ``launches`` from the
-     ``fflonk`` path); fr_ntt at 2^26 and 2^27: the round trip, and 8
+     plain versions at small shapes (level and chain boundaries, the
+     look-back's tile edges, and ~10^5 tiles checked by the division's
+     identity at random points) and at 2^20 rows of each devnet use, then
+     timed at every shape of (c)'s wrap with their bounds and launches a
+     wrap (the kernels line's rows, ``launches`` from the ``fflonk``
+     path; a line of launches x (ms - bound) a wrap for each kernel);
+     fr_ntt at 2^26 and 2^27: the round trip, and 8
      positions of the forward transform equal to fr_eval's values there
      and to the host's sums for a 3-term input.
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
@@ -218,17 +228,20 @@ bn254_msm_g1 / _g2 on 2^14 points made by them (points at infinity,
 zero scalars, r - 1, a repeated point, a point beside its negation, one
 point under the signed digits +5 and -5 in a window, digits of 2^(c - 1)
 and -(2^(c - 1) - 1) in every window, a bucket of a quarter of the
-points across 64 chunks; 10-bit windows) against the plain version and
-the step-by-step model ``_msm_model``, and on the 2^20 points they are
+points across 64 chunks; 10-bit windows) against the plain version
+(the step-by-step model ``_msm_model`` is held on the CPU, by
+tests/test_torch_msm.py), and on the 2^20 points they are
 timed on (16-bit windows, as on the main path) with all but 8,212
 scalars set to 0, each MSM's stages timed at 2^20 with CUDA events,
 fr_ntt either side of each pass boundary (2^0 .. 2^3, 2^7, 2^10 .. 2^12,
-2^22, 2^23: one, two and three passes), on edge values, the round trip,
+2^22, 2^23: one, two and three passes; at 2^22 and 2^23 the forward
+transform, the inverse by the round trip), on edge values, the round trip,
 and at phase 8's three shapes (a 2^20 inverse, the 2^21 forward and
 inverse), each timed, with its device launches a call (counted by the
 library at each launch);
-its twiddle tables built on the card (fr_ntt_twiddles, timed) equal to
-the host-built ones, their cold build timed on the host; fr_mul_sub at
+its 2^21 forward twiddle table built on the card (fr_ntt_twiddles,
+timed) equal to the host-built one (the inverse tables are held by the
+inverse transforms), their cold build timed on the host; fr_mul_sub at
 2^21 with edge values; each timed at the devnet root's shapes (2^20
 scalars and points, 2^21 values).  The cascade's final stage builds its
 twiddle tables anew; phase 8 prints h's split (g16_h_eval_s,
@@ -249,6 +262,8 @@ and ends with
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import os
 import sys
@@ -273,6 +288,7 @@ CURVE_OPS = {"g1": {"mixed": 7 * FR_MUL + 4 * FR_SQ,
                     "full": 11 * 3 * FR_MUL + 5 * 2 * FR_MUL,
                     "mul": 3 * FR_MUL, "point_bytes": 128}}
 SEED = 20261016                    # kernel inputs of phase 2
+SHAPE_PLAIN_ROWS = 1 << 16         # check_shapes: leaf rows held to plain
 # the kernels that every Setup.build + gen_proof of a path launches
 GL_PATH_KERNELS = ("poseidon_linear_hash", "gl_mul")
 G16_KERNELS = ("bn254_msm_g1", "bn254_msm_g2", "bn254_fixed_base_g1",
@@ -315,15 +331,23 @@ NEW_STATE_ROOT = 19                # publics[19:27]: newStateRoot limbs
 A7 = os.path.join(REPO, "a7_state_devnet")
 # the cascade's stage files and record, made anew in each run
 CASCADE_DIR = os.path.join(REPO, "build", "a7_state_devnet")
-# The cascade's depth, cut for the run's time limit when phase 12 came:
-# the four batch proofs are read back from their committed
-# a7_state_devnet/ files (the port's own proofs, made on the card)
-# instead of being proven again; the four lifts, the aggregations and the
-# final stage are proven here, phase 7 checks all four batch proofs as
-# before (and proves batch 0's trace with a wrong public), and phase 11
-# proves batch 0 again as a served request.
-CASCADE_READ_BACK = (0, 1, 2, 3)
+# The cascade's depth, cut for the run's time limit: the stages named
+# here are read back from their committed a7_state_devnet/ files (the
+# port's own proofs, made on the card) instead of being proven again.
+# The four batch proofs (cut when phase 12 came; phase 11 proves batch 0
+# again as a served request, and phase 7 proves batch 0's trace with a
+# wrong public) and the second half of the recursion tree (recursive1_2,
+# recursive1_3, aggregate_23, cut when phase 13 came).  The lifts of
+# batches 0 and 1, aggregate_01 over them, aggregate_root over
+# aggregate_01 and the read-back aggregate_23, and the final stage are
+# proven here; phases 6 and 7 check every stage's proof as before.
+CASCADE_READ_BACK = ("batch_proof_0vdev0", "batch_proof_1vdev1",
+                     "batch_proof_2vdev2", "batch_proof_3vdev3",
+                     "recursive1_2", "recursive1_3", "aggregate_23")
 CASCADE_OUT = os.path.join(REPO, "build", "PROOF_a7_cascade_devnet.json")
+RECURSION_STAGES = ("recursive1_0", "recursive1_1", "recursive1_2",
+                    "recursive1_3", "aggregate_01", "aggregate_23",
+                    "aggregate_root")
 SVC_AGG_FIXTURE = os.path.join(REPO, "tests", "data",
                                "svc_agg_fib_q4.proof.json")
 # the fib traces (a0, b0, seed) of phase 9, those of the fixture
@@ -370,6 +394,14 @@ def _timed(torch, fn):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end)
+
+
+def _rand_below(rng, n: int, mod: int) -> list:
+    """n seeded Python ints below `mod` (< 2^256), each a 256-bit draw
+    reduced: the bytes of all n drawn at once."""
+    raw = rng.bytes(32 * n)
+    return [int.from_bytes(raw[i:i + 32], "little") % mod
+            for i in range(0, 32 * n, 32)]
 
 
 def _max_abs_err(got, ref) -> int:
@@ -819,7 +851,7 @@ def _curve_inputs(torch, rng, gen_group: str, n: int):
     gen = bn254.G1_GEN if gen_group == "g1" else bn254_tower.G2_GEN
     fixed = getattr(bn254_msm, f"fixed_base_{gen_group}")
     pts = fixed(gen, torch.from_numpy(bn254_mont.to_words(ks)).to(cuda))
-    sc = [int.from_bytes(rng.bytes(32), "little") % r for _ in range(n)]
+    sc = _rand_below(rng, n, r)
     sc[0] = sc[1] = 0
     sc[2] = r - 1
     sc[n // 4:n // 2] = [1] * (n // 2 - n // 4)
@@ -890,8 +922,7 @@ def phase_g16_kernels(torch, rng):
                 for k in ks[4:6]]
         _require(host == want, f"bn254_fixed_base_{group} of r - 1 and "
                  "r - 2 equals the host's")
-        big_sc = words([int.from_bytes(rng.bytes(32), "little") % r
-                        for _ in range(big)])
+        big_sc = words(_rand_below(rng, big, r))
         ms = _cuda_ms(lambda: fn(gen, big_sc), 1)
         rows.append({
             "name": f"bn254_fixed_base_{group}", "route": "cuda",
@@ -907,7 +938,8 @@ def phase_g16_kernels(torch, rng):
 
     # -- MSM: edge inputs at 2^14 (c = 10: 26 windows of 512 buckets, a
     # bucket of a quarter of the points across 64 chunks) against the plain
-    # version and the step-by-step model; then the timed 2^20 inputs
+    # version (the step-by-step model _msm_model is held on the CPU, by
+    # tests/test_torch_msm.py); then the timed 2^20 inputs
     # (c = 16, the main path's layout) with every 128th scalar and the
     # edge rows kept and the rest set to 0, against the plain version over
     # the kept rows (the others add nothing); then each stage timed on the
@@ -930,12 +962,8 @@ def phase_g16_kernels(torch, rng):
                      "points equals its plain version (affine)")
             if n == mid:
                 plain_ms = ms
-                model = bn254_msm._msm_model(ops, pts, sc)
-                _require(_flat(affine(model)) == a, f"bn254_msm_{group} at "
-                         f"{n} points equals the step-by-step model")
-                print(f"bn254_msm_{group} at {n}: equal to _msm_plain and "
-                      f"_msm_model in affine; Jacobian bit-equal to the "
-                      f"model: {torch.equal(got, model)}", flush=True)
+                print(f"bn254_msm_{group} at {n}: equal to _msm_plain in "
+                      "affine", flush=True)
         _require(affine(fn(pts, torch.zeros_like(sc))) is None,
                  f"bn254_msm_{group} of zero scalars is infinity")
         ms = _cuda_ms(lambda: fn(pts, sc), 2)
@@ -957,18 +985,19 @@ def phase_g16_kernels(torch, rng):
         del pts, sc, idx, keep
         torch.cuda.empty_cache()
 
-    # -- the Fr NTT: the twiddle tables expanded on the card against the
-    # host-built ones (the 2^21 forward's timed); the kernel bit-equal to
-    # its plain version either side of each pass boundary (2^11 values a
-    # block: one pass to 2^11, two to 2^22, three beyond), on edge values,
-    # the round trip, and at phase 8's three shapes, each timed; the
-    # device launches of one call counted by the library ---------------
+    # -- the Fr NTT: the 2^21 forward's twiddle table expanded on the card
+    # against the host-built one, and timed (the inverse tables are held
+    # by the transforms below, bit-equal at their shapes); the kernel
+    # bit-equal to its plain version either side of each pass boundary
+    # (2^11 values a block: one pass to 2^11, two to 2^22, three beyond;
+    # above 2^12 the inverse by the round trip), on edge values, the round
+    # trip, and at phase 8's three shapes, each timed; the device launches
+    # of one call counted by the library -----------------------------
     err = 0
     tw_rows, table_s = [], {}
     for bits in (0, 1, 2, 3, 7, 10, 11, 12, 22, 23):
         if bits <= 12:                         # uniform below r
-            x = words([int.from_bytes(rng.bytes(32), "little") % r
-                       for _ in range(1 << bits)])
+            x = words(_rand_below(rng, 1 << bits, r))
         else:
             # in bulk: words 0-2 take every 64-bit value, word 3 is
             # below 2^60, so the value is below 2^252 < r
@@ -977,7 +1006,7 @@ def phase_g16_kernels(torch, rng):
             x[:, 3] &= (1 << 60) - 1
             x = torch.from_numpy(x).to(cuda)
         x0 = x.clone()
-        for inverse in (False, True):
+        for inverse in (False, True) if bits <= 12 else (False,):
             err = max(err, _max_abs_err(ntt_fr.ntt(x, inverse),
                                         ntt_fr._ntt_plain(x, inverse)))
         _require(torch.equal(ntt_fr.ntt(ntt_fr.ntt(x), inverse=True), x)
@@ -998,11 +1027,12 @@ def phase_g16_kernels(torch, rng):
         torch.cuda.synchronize()
         table_s[f"2^{bits}{' inverse' if inverse else ''}"] = \
             time.perf_counter() - t0
-        want = words(v * bn254_mont.MONT % r
-                     for v in ntt_fr._powers(bits, inverse))
-        _require(torch.equal(table, want), f"the 2^{bits} twiddle table "
-                 "built on the card equals the host-built one")
         if (bits, inverse) == (21, False):
+            want = words(v * bn254_mont.MONT % r
+                         for v in ntt_fr._powers(bits, inverse))
+            _require(torch.equal(table, want), f"the 2^{bits} twiddle table "
+                     "built on the card equals the host-built one")
+            del want
             lo, hi = (words(p) for p in ntt_fr._host_twiddle_parts(
                 bits, inverse))
             ref, plain_ms = _timed(torch, lambda: ntt_fr
@@ -1022,7 +1052,7 @@ def phase_g16_kernels(torch, rng):
                 "ops": count * FR_MUL, "shape": [count, 4],
                 "plain_shape": [count, 4]})
             del lo, hi, ref
-        del table, want
+        del table
     print("fr_ntt: twiddle tables built cold (host parts and the card's "
           "expansion, host clock after a synchronise), s: "
           + json.dumps(table_s), flush=True)
@@ -1202,7 +1232,10 @@ def phase_binary(torch, case, trace_s: float):
 def check_shapes(torch, air, path: str) -> dict:
     """poseidon_linear_hash on the cm1 leaves of `air` and gl_mul on one
     stage of its cm1 LDE, each bit for bit against its plain version and
-    timed.  -> {kernel: {"shape", "ms", "bound_ms"}}"""
+    timed; the leaves' digests against the plain version on their first
+    SHAPE_PLAIN_ROWS rows (each row is hashed apart, and phase 2 holds
+    the kernel on every row of 2^21).  -> {kernel: {"shape", "ms",
+    "bound_ms"}}"""
     from xlayer_prover_tpu_torch.fields import gl
     from xlayer_prover_tpu_torch.ops import poseidon_gl
 
@@ -1210,8 +1243,9 @@ def check_shapes(torch, air, path: str) -> dict:
     width = air.cm1_width
     leaves = torch.randint(-(1 << 63), (1 << 63) - 1, (air.n_ext, width),
                            dtype=torch.int64, device=cuda)
-    err = _max_abs_err(poseidon_gl.linear_hash(leaves, width),
-                       poseidon_gl._linear_hash_plain(leaves, width))
+    rows = min(air.n_ext, SHAPE_PLAIN_ROWS)
+    err = _max_abs_err(poseidon_gl.linear_hash(leaves, width)[:rows],
+                       poseidon_gl._linear_hash_plain(leaves[:rows], width))
     _require(err == 0, "poseidon_linear_hash equals its plain version at "
              f"the {path} cm1 leaves")
     ms = _cuda_ms(lambda: poseidon_gl.linear_hash(leaves, width), 5)
@@ -1313,11 +1347,11 @@ def phase_cascade(torch):
     """The devnet cascade, the main path of this slice
     (``cascade.DevnetCascade`` in a fresh state directory under build/),
     launches counted from 0 over the whole run; the shape of every
-    Poseidon-BN254 launch recorded around the wrappers; the batch proofs
-    of ``CASCADE_READ_BACK`` copied from a7_state_devnet/ first, so the
-    cascade reads them back.  Every other stage must have been proven here
-    (none resumed) and each batch, recursion and final stage must have
-    launched its kernels.  -> (launches, cascade, Poseidon-BN254 calls by
+    Poseidon-BN254 launch recorded around the wrappers; the stages of
+    ``CASCADE_READ_BACK`` copied from a7_state_devnet/ first, so the
+    cascade reads them back.  Every other stage must have been proven
+    here (none resumed) and each batch, recursion and final stage must
+    have launched its kernels.  -> (launches, cascade, Poseidon-BN254 calls by
     shape, report)"""
     import collections
     import shutil
@@ -1328,11 +1362,10 @@ def phase_cascade(torch):
 
     shutil.rmtree(CASCADE_DIR, ignore_errors=True)
     os.makedirs(CASCADE_DIR)
-    for k in CASCADE_READ_BACK:
-        name = cascade.batch_stage(k)
+    for name in CASCADE_READ_BACK:
         shutil.copyfile(os.path.join(A7, f"{name}_nb16_q4.json"),
                         os.path.join(CASCADE_DIR, f"{name}_nb16_q4.json"))
-    read_back = {cascade.batch_stage(k) for k in CASCADE_READ_BACK}
+    read_back = set(CASCADE_READ_BACK)
     calls = collections.Counter()
     wrapped = {name: getattr(pbn, name) for name in ("permute", "leaf_hash")}
 
@@ -1401,17 +1434,16 @@ def phase_cascade(torch):
 
 def cascade_groups() -> dict:
     """The cascade's stages proven in this run, by the part of the path
-    they drive (the batch proofs read back are in none; a part with no
-    stage is left out)."""
+    they drive (the stages read back are in none; a part with no stage
+    is left out)."""
     from xlayer_prover_tpu_torch import cascade
-    n = cascade.N_BATCHES
-    groups = {"cascade_batches": [cascade.batch_stage(k) for k in range(n)
-                                  if k not in CASCADE_READ_BACK],
-              "cascade_recursion": [*(f"recursive1_{k}" for k in range(n)),
-                                    "aggregate_01", "aggregate_23",
-                                    "aggregate_root"],
+    groups = {"cascade_batches": [cascade.batch_stage(k)
+                                  for k in range(cascade.N_BATCHES)],
+              "cascade_recursion": RECURSION_STAGES,
               "cascade_final": ["finalize_groth16"]}
-    return {k: v for k, v in groups.items() if v}
+    return {k: [s for s in v if s not in CASCADE_READ_BACK]
+            for k, v in groups.items()
+            if any(s not in CASCADE_READ_BACK for s in v)}
 
 
 def phase_batches(torch, cas):
@@ -1492,9 +1524,10 @@ def phase_batches(torch, cas):
 
 
 def phase_recursion(torch, cas):
-    """Phase 7: the cascade's four lifts and three aggregations of its own
-    proofs byte-equal to a7_state_devnet/ and verified; three refusals;
-    the kernels held at the recursive1 shapes.  -> the shapes' rows"""
+    """Phase 7: the cascade's lifts and aggregations proven in this run
+    byte-equal to a7_state_devnet/, and all seven verified (those read
+    back too); three refusals; the kernels held at the recursive1
+    shapes.  -> the shapes' rows"""
     from xlayer_prover_tpu_torch import device
     from xlayer_prover_tpu_torch.recursion import gate_air
     from xlayer_prover_tpu_torch.recursion.stack import RecursiveProof
@@ -1510,17 +1543,19 @@ def phase_recursion(torch, cas):
               f"{g.n_publics} constraints={len(g.constraints)} ev_map="
               f"{len(g.ev_map)} fri_steps={g.fri_steps} rows_used="
               f"{eng.layout.n_rows_used} {eng.tracer.stats()}", flush=True)
-    stages = cascade_groups()["cascade_recursion"]
+    proven = cascade_groups()["cascade_recursion"]
     verify_s = {}
-    for name in stages:
-        _byte_equal_to_a7(cas, name)
+    for name in RECURSION_STAGES:
+        if name in proven:
+            _byte_equal_to_a7(cas, name)
         t0 = time.perf_counter()
         _require(stack.verify(cas.outputs[name]), f"the {name} proof "
                  "verifies")
         verify_s[name] = time.perf_counter() - t0
-    print("recursion: recursive1_0-3, aggregate_01, aggregate_23 and "
-          "aggregate_root from the port's own proofs byte-equal to "
-          "a7_state_devnet/, verified", flush=True)
+    print(f"recursion: {', '.join(proven)} proven from the port's own "
+          "proofs byte-equal to a7_state_devnet/; all seven verified "
+          f"({', '.join(s for s in RECURSION_STAGES if s not in proven)} "
+          "read back)", flush=True)
     root = cas.outputs["aggregate_root"]
     _require(stack.finalize(root, wrap="stark") is root,
              "finalize(wrap='stark') accepts the root")
@@ -1561,8 +1596,8 @@ def phase_recursion(torch, cas):
     shapes = check_shapes(torch, rec1.air, "recursive1")
     print(device.smi("name,power.limit"), flush=True)
     report = {"n_bits": rec1.air.n_bits, "pair_s": stack.timings,
-              "proofs_s": {s: cas.record["stages"][s] for s in stages},
-              "rounds_s": {s: cas.record["timings"].get(s) for s in stages},
+              "proofs_s": {s: cas.record["stages"][s] for s in proven},
+              "rounds_s": {s: cas.record["timings"].get(s) for s in proven},
               "verify_s": verify_s,
               "tracer_stats": {"rec1": rec1.tracer.stats(),
                                "rec2": rec2.tracer.stats()}}
@@ -1970,10 +2005,8 @@ def phase_chains(torch):
         held = f"byte-equal to {os.path.relpath(CHAINS_PROOF, REPO)}"
     else:
         held = "no JAX proof fixture: held by digests, publics and verkey"
-    t0 = time.perf_counter()
-    _require(verifier.verify(air, setup.verkey, proof),
-             "the 2^18 chains proof verifies")
-    verify_s = time.perf_counter() - t0
+    # the service verified the proof before it completed the request
+    # (verifier.verify raises VerifyError on a proof that fails)
     bad = StarkProof.from_json(proof.to_json())
     bad.evals[0][0] = (int(bad.evals[0][0]) + 1) % gl.P
     print("chains: a tampered evaluation refused: "
@@ -2016,7 +2049,7 @@ def phase_chains(torch):
               "request_s": request_s, "execute_s": t["execute_s"],
               "stark_s": t["stark_s"], "rounds_s": t["rounds_s"],
               "verify_s": t["verify_s"], "rows_per_s": air.n / t["stark_s"],
-              "verify_again_s": verify_s, "digest_s": digest_s,
+              "digest_s": digest_s,
               "gates_execute_ms": gates_ms, "peak_bytes": peak,
               "plan": _stream_stats(t["stark_stats"]),
               "launches": launches, "kernel_shapes": shapes}
@@ -2656,6 +2689,7 @@ FFLONK_FIXTURE = os.path.join(REPO, "tests", "data",
                               "fflonk_seeded_n12.json")
 FFLONK_RNG = 11                    # (c): the cascade's seed
 PLAIN_SAMPLE = 1 << 20             # (a): the rows held against plain
+LOOKBACK_DEEP_TILES = 100_003      # (a): tiles of the deep look-back
 
 
 def fr_poly_work(name: str, **kw) -> dict:
@@ -2665,14 +2699,15 @@ def fr_poly_work(name: str, **kw) -> dict:
     function needs.  fr_eval: n coefficients, m points (a product a
     coefficient a point); fr_div_binomial: n coefficients by X^k - c (a
     product a quotient and a remainder value by the recurrence
-    q_j = p_{j+k} + c q_{j+k}, none where c = 1); fr_scan_mul: n outputs of n inputs (or
-    one repeated), a product each; fr_pointwise: `inputs` vectors of n
+    q_j = p_{j+k} + c q_{j+k}, none where c = 1); fr_scan_mul: n outputs
+    of n inputs (or one repeated), a product each; fr_pointwise: `inputs` vectors of n
     values, `outputs` of n, `products` a value, the fewest the identity
     needs: the gate a (qM b + qL) + qR b + qO c + qC + PI 4; perm_z 9,
     the domain point x = w^i 1, beta x 1 (K1 beta x and K2 beta x are
     additions: K1 = 2, K2 = 3), beta S1..S3 3 and each side's three
     factors 2 and 2; perm_t2 those 9 and z num - z(w x) den 2, 11; a
-    linear combination one a term.  With `domain`, the identity reads
+    linear combination one a term, over `lens`, its inputs' lengths,
+    where they differ.  With `domain`, the identity reads
     x: the work is then either design, x computed (its product counted)
     or x read from a table of n values (32 bytes more a value, a
     product fewer), and `timed` takes the lesser bound of the two."""
@@ -2689,12 +2724,162 @@ def fr_poly_work(name: str, **kw) -> dict:
         return {"bytes": 32 * ((1 if kw.get("repeated") else n) + n),
                 "ops": n * FR_MUL}
     n = kw["n"]
+    if kw.get("lens"):
+        # a linear combination of inputs of these lengths (n the longest)
+        return {"bytes": 32 * (sum(kw["lens"]) + n),
+                "ops": sum(kw["lens"]) * FR_MUL}
     work = {"bytes": 32 * n * (kw["inputs"] + kw["outputs"]),
             "ops": n * kw["products"] * FR_MUL}
     if not kw.get("domain"):
         return work
     return [work, {"bytes": work["bytes"] + 32 * n,
                    "ops": work["ops"] - n * FR_MUL}]
+
+
+FR_POLY_WRAPPERS = {"fr_eval": "evaluate", "fr_div_binomial": "div_binomial",
+                    "fr_scan_mul": "scan_mul", "fr_pointwise": "pointwise"}
+
+
+def _fr_poly_call(name: str, fn, args, kw) -> tuple:
+    """What sets the work of one call of fr_poly's wrapper `fn` of kernel
+    `name`: fr_eval (length, points); fr_div_binomial (length, k, c ==
+    1); fr_scan_mul (length, repeated, exclusive); fr_pointwise (the
+    identity, each input's length)."""
+    import inspect
+
+    from xlayer_prover_tpu_torch.fields.bn254 import R as r
+    b = inspect.signature(fn).bind(*args, **kw)
+    b.apply_defaults()
+    a = b.arguments
+    if name == "fr_eval":
+        return (name, a["p"].shape[0], len(a["points"]))
+    if name == "fr_div_binomial":
+        return (name, a["p"].shape[0], a["k"], int(a["c"]) % r == 1)
+    if name == "fr_scan_mul":
+        rep = a["n"] is not None
+        return (name, a["n"] if rep else a["x"].shape[0], rep,
+                bool(a["exclusive"]))
+    return (name, a["op"], tuple(x.shape[0] for x in a["inputs"]))
+
+
+@contextlib.contextmanager
+def fr_poly_calls():
+    """Yields a list that gets _fr_poly_call of each call of fr_poly's
+    four wrappers, wherever it was made from (snark/fflonk.py reads them
+    off the module)."""
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    calls, saved = [], {}
+    for name, attr in FR_POLY_WRAPPERS.items():
+        fn = saved[attr] = getattr(fr_poly, attr)
+
+        def rec(*args, _name=name, _fn=fn, **kw):
+            calls.append(_fr_poly_call(_name, _fn, args, kw))
+            return _fn(*args, **kw)
+        setattr(fr_poly, attr, rec)
+    try:
+        yield calls
+    finally:
+        for attr, fn in saved.items():
+            setattr(fr_poly, attr, fn)
+
+
+def fflonk_wrap_calls(fr_poly, ntt_fr, n: int, sl, y: int, ks) -> list:
+    """Every fr_eval, fr_div_binomial, fr_scan_mul and fr_pointwise call
+    of the fflonk wrap at domain n, as (kernel, what, length, call, work,
+    launches a wrap); the inputs are sl(j, m), slices of one random
+    buffer, y a random point, ks four random constants.  The lengths are
+    snark/fflonk.py's: C0 = sum_i p_i(X^8) X^i over the eight keys of n
+    values has 8n, C1 over a, b, c (n + 2) and t0 (2n + 2) 8n + 8, C2
+    over z (n + 3), t1 (n + 2) and t2 (3n + 6) 9n + 18, and each root
+    set's quotient the length less the set's size.  Phase 13 (a) holds
+    the rows, with their launches a wrap, to the calls that (c)'s setup
+    and proof made (fr_poly_calls).  fr_eval's first two rows (at 9n +
+    21, the shapes its row was first timed at) are no call of the
+    wrap."""
+    c0, c1, c2 = 8 * n, 8 * n + 8, 9 * n + 18
+    w8 = ntt_fr.root_of_unity((8 * n).bit_length() - 1)
+    w1 = ntt_fr.root_of_unity(n.bit_length() - 1)
+    calls = []
+
+    def pw(what, m, nin, outs, products, call, domain=False, lens=None):
+        calls.append(("fr_pointwise", what, m, call, fr_poly_work(
+            "fr_pointwise", n=m, inputs=nin, outputs=outs,
+            products=products, domain=domain, lens=lens), 1))
+    # fr_eval: a, b, c and t1 at n + 2 and the eight keys at n (one
+    # point), z at two, t2 at 3n + 6, the root sets' 8, 4 and 6 points
+    # over C0, C1, C2
+    for m, pts, what, per in ((9 * n + 21, 2, "z at xi and xi w", 0),
+                              (9 * n + 21, 1, "one point", 0),
+                              (n + 2, 1, "a, b, c or t1 at xi", 4),
+                              (n, 1, "a key at xi", 8),
+                              (n + 3, 2, "z at xi and xi w", 1),
+                              (3 * n + 6, 1, "t2 at xi w", 1),
+                              (c0, 8, "C0 at S0's 8 points", 1),
+                              (c1, 4, "C1 at S1's 4 points", 1),
+                              (c2, 6, "C2 at S2's 6 points", 1)):
+        xs = [y + j for j in range(pts)]
+        calls.append(("fr_eval", what, m,
+                      lambda m=m, xs=xs: fr_poly.evaluate(sl(0, m), xs),
+                      fr_poly_work("fr_eval", n=m, m=pts), per))
+    for m, k, c, what, per in ((c2, 1, y, "W' = L / (X - y)", 1),
+                               (8 * n, n, 1, "T2 by X^n - 1", 1),
+                               (4 * n, n, 1, "T0 by X^n - 1", 1),
+                               (n + 3, 1, 1, "T1 by X - 1", 1),
+                               (c0, 8, y, "C0 by X^8 - c", 1),
+                               (c1, 4, y, "C1 by X^4 - c", 1),
+                               (c2, 3, y, "C2 by X^3 - c", 1),
+                               (c2 - 3, 3, y, "C2's quotient by X^3 - c",
+                                1)):
+        calls.append(("fr_div_binomial", what, m,
+                      lambda m=m, k=k, c=c: fr_poly.div_binomial(
+                          sl(0, m), k, c),
+                      fr_poly_work("fr_div_binomial", n=m, k=k, c=c), per))
+    for m, repeated, exclusive, what, per in (
+            (10 * n + 41, True, True, "tau^i", 1),
+            (n - 1, False, False, "z's running product", 1),
+            (n - 1, False, True, "the denominators' suffix products", 1),
+            (n, True, True, "the tags k w^i", 3)):
+        calls.append(("fr_scan_mul", what, m,
+                      lambda m=m, rep=repeated, ex=exclusive:
+                      fr_poly.scan_mul(sl(0, 1), ex, y, n=m) if rep
+                      else fr_poly.scan_mul(sl(0, m), ex),
+                      fr_poly_work("fr_scan_mul", n=m, repeated=repeated),
+                      per))
+    pw("T2's identity", 8 * n, 7, 1, 11, lambda: fr_poly.pointwise(
+        "perm_t2", [sl(j, 8 * n) for j in range(7)], [y, y + 2], w8, 8),
+       True)
+    pw("the gate", 4 * n, 9, 1, 4, lambda: fr_poly.pointwise(
+        "gate", [sl(j, 4 * n) for j in range(9)]))
+    pw("z's numerator, denominator", n, 6, 2, 9, lambda: fr_poly.pointwise(
+        "perm_z", [sl(j, n) for j in range(6)], [y, y + 2], w1), True)
+    # L = C0, C1, C2 and W; W = the root sets' quotients
+    for what, lens in (("L", (c0, c1, c2, c2 - 6)),
+                       ("W", (c0 - 8, c1 - 4, c2 - 6))):
+        pw(what, max(lens), len(lens), 1, len(lens),
+           lambda lens=lens: fr_poly.pointwise(
+               "lincomb", [sl(j, m) for j, m in enumerate(lens)],
+               ks[:len(lens)]), lens=lens)
+    pw("z's product", n - 1, 2, 1, 2, lambda: fr_poly.pointwise(
+        "mul", [sl(0, n - 1), sl(1, n - 1)], [y]))
+    pw("T1's scale", n + 2, 1, 1, 1, lambda: fr_poly.pointwise(
+        "lincomb", [sl(0, n + 2)], [y]))
+    return calls
+
+
+def _division_holds(p, q, rem, k: int, c: int, xs) -> bool:
+    """p(x) = q(x) (x^k - c) + rem(x) at each x of xs (random points of
+    Fr: a wrong q or rem passes with probability under deg / r),
+    evaluated by fr_eval (held bit for bit against its plain version)."""
+    from xlayer_prover_tpu_torch.fields.bn254 import R as r
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    from xlayer_prover_tpu_torch.ops.bn254_mont import from_words
+    rs = from_words(rem)
+    for x, pv, qv in zip(xs, fr_poly.evaluate(p, xs),
+                         fr_poly.evaluate(q, xs)):
+        rv = sum(v * pow(x, j, r) for j, v in enumerate(rs)) % r
+        if pv != (qv * (pow(x, k, r) - c) + rv) % r:
+            return False
+    return True
 
 
 def _rand_fr(torch, n: int, dev, gen=None):
@@ -2710,20 +2895,24 @@ def _rand_fr(torch, n: int, dev, gen=None):
     return x
 
 
-def phase_fflonk_kernels(torch, n: int) -> list:
+def phase_fflonk_kernels(torch, n: int, wrap_calls: list) -> list:
     """Phase 13 (a): fr_eval, fr_div_binomial, fr_scan_mul and
     fr_pointwise each held bit for bit against its plain version on the
     card at small shapes (the edges of a level and of a chain: 1, 33 and
     4,101 values, k = 1, 3, 8, 9, 2^10, broadcast scans, inputs of their
-    own lengths, domains of 1, 2^5 and 2^15) and at PLAIN_SAMPLE rows of
-    each devnet use (fr_pointwise: T2's identity, perm_z, the gate and a
-    4-input linear combination of ragged lengths), then
-    timed at the devnet root's shapes of (c) (n = its domain): fr_eval over
-    9n values at 1 and 2 points (C2, W', the 15 evaluations),
-    fr_div_binomial by X - y over 9n values and by X^n - 1 over 8n,
-    fr_scan_mul as tau^i over 10 n + 41 and z's running product over n,
-    fr_pointwise's T2 identity over 8n, the gate over 4n, the permutation
-    over n and L's combination of 4 inputs over 9n.  fr_ntt at 2^26 (the
+    own lengths, domains of 1, 2^5 and 2^15; fr_div_binomial's look-back
+    at k = 1, 3, 4, 8 with c = 1 and not over m < k, one tile, a ragged
+    last tile and three, and over LOOKBACK_DEEP_TILES tiles by the
+    division's identity at random points) and at PLAIN_SAMPLE rows of
+    each devnet use (every division's binomial; fr_pointwise's T2
+    identity, perm_z, the gate, L, W, T1's scale and z's product), then
+    timed at the devnet root's
+    shapes of (c) (n = its domain), each with its launches a wrap: every
+    call of the wrap's 17 fr_eval, 8 fr_div_binomial, 6 fr_scan_mul and 7
+    fr_pointwise launches (and fr_eval's two rows at 9n + 21), the rows
+    and their launches a wrap held to `wrap_calls`, the calls of (c)'s
+    setup and proof (fr_poly_calls), with launches x (ms - bound) a wrap
+    for each kernel.  fr_ntt at 2^26 (the
     devnet root's 8n domain) and 2^27 (a circuit twice its size; Fr's
     domains stop at 2^28): the round trip, and the forward
     transform at 8 positions equal to the polynomial's values there
@@ -2747,6 +2936,7 @@ def phase_fflonk_kernels(torch, n: int) -> list:
         return _rand_fr(torch, m, cuda, gen)
 
     err = {k: 0 for k in FFLONK_KERNELS}
+    marks = [time.perf_counter()]
 
     def same(name, got, ref, what):
         if isinstance(got, list):
@@ -2798,6 +2988,35 @@ def phase_fflonk_kernels(torch, n: int) -> list:
              fr_poly.pointwise("perm_t2", ins, bg, w, 8 % m),
              fr_poly._pointwise_plain("perm_t2", ins, bg, w, 8 % m),
              f"perm_t2 at 2^{bits}")
+    # -- the look-back kernel (k <= LIN_MAX_K) at its edges: m < k, one
+    # tile, a ragged last tile, a few tiles; c = 1 (additions) and not ---
+    for k in (1, 3, 4, 8):
+        tile = fr_poly._lb_tile(k)
+        for m in sorted({max(1, k - 1), tile, tile + 5, 3 * tile - 7}):
+            p = rand(m + k)
+            for c in (1, pyrng.randrange(2, r)):
+                q, rem = fr_poly.div_binomial(p, k, c)
+                pq, pr = fr_poly._div_binomial_plain(p, k, c)
+                same("fr_div_binomial", q, pq, f"look-back, {m} values, "
+                     f"k = {k}, c = 1: {c == 1}")
+                same("fr_div_binomial", rem, pr, f"look-back remainder, "
+                     f"{m} values, k = {k}")
+    # ~10^5 tiles, so the look-back runs deep: p = q (X^k - c) + r at
+    # random points (a carry wrong anywhere changes q(x))
+    for k, c, tiles in ((1, pyrng.randrange(2, r), LOOKBACK_DEEP_TILES),
+                        (4, 1, LOOKBACK_DEEP_TILES // 5)):
+        m = tiles * fr_poly._lb_tile(k) - 5
+        p = rand(m + k)
+        q, rem = fr_poly.div_binomial(p, k, c)
+        xs = [pyrng.randrange(r) for _ in range(2)]
+        same("fr_div_binomial", [_division_holds(p, q, rem, k, c, xs)],
+             [True], f"the look-back over {tiles} tiles, k = {k}")
+        print(f"fflonk kernels: the look-back over {tiles} tiles (k = {k}, "
+              f"c = 1: {c == 1}): p = q (X^k - c) + r at 2 random points",
+              flush=True)
+        del p, q
+        torch.cuda.empty_cache()
+
     # -- PLAIN_SAMPLE rows at each devnet use, the plain version timed ----
     m = PLAIN_SAMPLE
     p = rand(m)
@@ -2811,11 +3030,16 @@ def phase_fflonk_kernels(torch, n: int) -> list:
     same("fr_div_binomial", q, pq, f"{m} values by X - y")
     same("fr_div_binomial", rem, pr, f"{m} values by X - y")
     plain_ms["fr_div_binomial"] = ms
-    zh = 1 << 17                          # X^n - 1 at a 2^17 domain, 8n
-    pq, pr = fr_poly._div_binomial_plain(p, zh, 1)
-    q, rem = fr_poly.div_binomial(p, zh, 1)
-    same("fr_div_binomial", q, pq, f"{m} values by X^{zh} - 1")
-    same("fr_div_binomial", rem, pr, f"{m} values by X^{zh} - 1")
+    # T2 and T0 by X^n - 1 (8n, 4n at a 2^17 and 2^18 domain), T1 by
+    # X - 1, the root sets by X^8 - c, X^4 - c, X^3 - c
+    for k, c, what in ((1 << 17, 1, "X^n - 1 (T2)"),
+                       (1 << 18, 1, "X^n - 1 (T0)"), (1, 1, "X - 1 (T1)"),
+                       (8, y, "X^8 - c (C0)"), (4, y, "X^4 - c (C1)"),
+                       (3, y, "X^3 - c (C2)")):
+        pq, pr = fr_poly._div_binomial_plain(p, k, c)
+        q, rem = fr_poly.div_binomial(p, k, c)
+        same("fr_div_binomial", q, pq, f"{m} values by {what}")
+        same("fr_div_binomial", rem, pr, f"{m} values by {what}")
     ref, ms = _timed(torch, lambda: fr_poly._scan_mul_plain(p, False, 1,
                                                             None))
     same("fr_scan_mul", fr_poly.scan_mul(p), ref, f"{m} values")
@@ -2840,11 +3064,21 @@ def phase_fflonk_kernels(torch, n: int) -> list:
     ks = [pyrng.randrange(r) for _ in range(4)]
     same("fr_pointwise", fr_poly.pointwise("lincomb", lens, ks),
          fr_poly._pointwise_plain("lincomb", lens, ks, 1, 0),
-         f"a 4-input lincomb at {m} to {m - 24} values")
+         f"a 4-input lincomb (L) at {m} to {m - 24} values")
+    same("fr_pointwise", fr_poly.pointwise("lincomb", lens[1:], ks[1:]),
+         fr_poly._pointwise_plain("lincomb", lens[1:], ks[1:], 1, 0),
+         f"a 3-input lincomb (W) at {m - 8} to {m - 24} values")
+    same("fr_pointwise", fr_poly.pointwise("lincomb", ins[:1], ks[:1]),
+         fr_poly._pointwise_plain("lincomb", ins[:1], ks[:1], 1, 0),
+         f"T1's scale at {m}")
+    same("fr_pointwise", fr_poly.pointwise("mul", ins[:2], ks[:1]),
+         fr_poly._pointwise_plain("mul", ins[:2], ks[:1], 1, 0),
+         f"z's product at {m}")
     del p, q, rem, pq, pr, ref, ins, lens
     fr_poly._domain_tables.cache_clear()
     torch.cuda.empty_cache()
 
+    marks.append(time.perf_counter())
     # -- fr_ntt at 2^26 and 2^27 ------------------------------------------
     for bits in (26, 27):
         x = rand(1 << bits)
@@ -2874,66 +3108,51 @@ def phase_fflonk_kernels(torch, n: int) -> list:
         ntt_fr._kernel_twiddles.cache_clear()
         torch.cuda.empty_cache()
 
+    marks.append(time.perf_counter())
     # -- timed at the devnet root's shapes (inputs are slices of one
     # random buffer, 2^22 rows apart, so no two share a cache line) ------
     gap = 1 << 22
-    n9 = 9 * n + 21
     big = rand(max(10 * n + 41, 6 * gap + 8 * n, 8 * gap + 4 * n,
-                   3 * gap + n9))
+                   3 * gap + 9 * n + 21))
 
     def sl(j, m):
         return big[j * gap:j * gap + m]
 
     shapes = {k: [] for k in FFLONK_KERNELS}
+    rows_calls = collections.Counter()
 
-    def timed(name, fn, work, shape, what):
-        fn()
+    def timed(name, fn, work, shape, what, per_wrap):
+        with fr_poly_calls() as made:
+            fn()
+        _require(len(made) == 1, f"{name} ({what}) is one call")
+        rows_calls.update({made[0]: per_wrap})
         ms = _cuda_ms(fn, 2)
         bound, by = min(_bound_ms(w, int_rate) for w in
                         (work if isinstance(work, list) else [work]))
         shapes[name].append({"shape": shape, "what": what, "ms": ms,
-                             "bound_ms": bound, "bound_by": by})
+                             "bound_ms": bound, "bound_by": by,
+                             "per_wrap": per_wrap})
         print(f"kernel {name} ({what}) at {shape}: {ms:.4f} ms (bound "
-              f"{bound:.4f} ms by {by})", flush=True)
+              f"{bound:.4f} ms by {by}; {per_wrap} a wrap)", flush=True)
 
     y = pyrng.randrange(r)
-    timed("fr_eval", lambda: fr_poly.evaluate(sl(0, n9), [y, y + 1]),
-          fr_poly_work("fr_eval", n=n9, m=2), [n9, 4], "z at xi and xi w")
-    timed("fr_eval", lambda: fr_poly.evaluate(sl(0, n9), [y]),
-          fr_poly_work("fr_eval", n=n9, m=1), [n9, 4], "one point")
-    timed("fr_div_binomial", lambda: fr_poly.div_binomial(sl(0, n9), 1, y),
-          fr_poly_work("fr_div_binomial", n=n9, k=1, c=y), [n9, 4],
-          "W' = L / (X - y)")
-    timed("fr_div_binomial", lambda: fr_poly.div_binomial(sl(0, 8 * n), n, 1),
-          fr_poly_work("fr_div_binomial", n=8 * n, k=n, c=1), [8 * n, 4],
-          "T2 by X^n - 1")
-    timed("fr_scan_mul", lambda: fr_poly.scan_mul(sl(0, 1), True,
-                                                  n=10 * n + 41),
-          fr_poly_work("fr_scan_mul", n=10 * n + 41, repeated=True),
-          [10 * n + 41, 4], "tau^i")
-    timed("fr_scan_mul", lambda: fr_poly.scan_mul(sl(0, n - 1)),
-          fr_poly_work("fr_scan_mul", n=n - 1), [n - 1, 4],
-          "z's running product")
-    w8 = ntt_fr.root_of_unity((8 * n).bit_length() - 1)
-    timed("fr_pointwise", lambda: fr_poly.pointwise(
-        "perm_t2", [sl(j, 8 * n) for j in range(7)], [y, y + 2], w8, 8),
-        fr_poly_work("fr_pointwise", n=8 * n, inputs=7, outputs=1,
-                     products=11, domain=True), [8 * n, 4], "T2's identity")
-    timed("fr_pointwise", lambda: fr_poly.pointwise(
-        "gate", [sl(j, 4 * n) for j in range(9)]),
-        fr_poly_work("fr_pointwise", n=4 * n, inputs=9, outputs=1,
-                     products=4), [4 * n, 4], "the gate")
-    timed("fr_pointwise", lambda: fr_poly.pointwise(
-        "perm_z", [sl(j, n) for j in range(6)], [y, y + 2],
-        ntt_fr.root_of_unity(n.bit_length() - 1)),
-        fr_poly_work("fr_pointwise", n=n, inputs=6, outputs=2,
-                     products=9, domain=True), [n, 4],
-        "z's numerator, denominator")
     ks = [pyrng.randrange(r) for _ in range(4)]
-    timed("fr_pointwise", lambda: fr_poly.pointwise(
-        "lincomb", [sl(j, n9 - 8 * j) for j in range(4)], ks),
-        fr_poly_work("fr_pointwise", n=n9, inputs=4, outputs=1,
-                     products=4), [n9, 4], "L")
+    for name, what, m, fn, work, per in fflonk_wrap_calls(
+            fr_poly, ntt_fr, n, sl, y, ks):
+        timed(name, fn, work, [m, 4], what, per)
+    made = collections.Counter(wrap_calls)
+    _require(+rows_calls == made, "the timed rows, with their launches a "
+             "wrap, are the calls of (c)'s setup and proof (only in the "
+             f"rows: {sorted((+rows_calls - made).items())}; only in (c): "
+             f"{sorted((made - rows_calls).items())})")
+    marks.append(time.perf_counter())
+    print("fflonk kernels: seconds of the checks, fr_ntt, the timing: "
+          + ", ".join(f"{b - a:.2f}" for a, b in zip(marks, marks[1:])),
+          flush=True)
+    loss = {name: sum(e["per_wrap"] * (e["ms"] - e["bound_ms"])
+                      for e in shapes[name]) for name in FFLONK_KERNELS}
+    print("fflonk kernels: launches x (ms - bound) a wrap, ms: "
+          + json.dumps(loss), flush=True)
     del big
     fr_poly._domain_tables.cache_clear()
     torch.cuda.empty_cache()
@@ -2993,13 +3212,14 @@ def phase_fflonk_fixture(torch) -> dict:
     return {"n": arr.n, "gates": arr.n_gates, "setup_prove_s": prove_s}
 
 
-def phase_fflonk(torch, r1cs, witness) -> tuple[dict, dict, int]:
+def phase_fflonk(torch, r1cs, witness) -> tuple[dict, dict, int, list]:
     """Phase 13 (c): the devnet root's final circuit (phase 8's R1CS and
     witness, kept from the cascade's finalize) under fflonk, launches
     counted from 0 and the peak reset first: r1cs_to_arrays (one pass,
     with the witness), setup and prove with random.Random(FFLONK_RNG),
     verify; a proof with its z evaluation changed and the proof with a
-    changed public refused.  -> (launches, the "fflonk" line's report, n)"""
+    changed public refused.  -> (launches, the "fflonk" line's report, n,
+    fr_poly_calls of setup and prove)"""
     import dataclasses
     import random
 
@@ -3020,19 +3240,24 @@ def phase_fflonk(torch, r1cs, witness) -> tuple[dict, dict, int]:
           f"points ({plonk_s:.3f} s)", flush=True)
     rng = random.Random(FFLONK_RNG)
     setup_t, prove_t = {}, {}
-    t0 = time.perf_counter()
-    pk, vk = fflonk.setup(arr, rng=rng, timings=setup_t)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    setup_peak = torch.cuda.max_memory_allocated()
-    print(f"fflonk: setup {setup_s:.3f} s {json.dumps(setup_t)}, peak "
-          f"{setup_peak} B", flush=True)
-    t0 = time.perf_counter()
-    proof = fflonk.prove(pk, arr, publics, rng=rng,
-                         timings=prove_t)
-    torch.cuda.synchronize()
-    prove_s = time.perf_counter() - t0
+    with fr_poly_calls() as wrap_calls:
+        t0 = time.perf_counter()
+        pk, vk = fflonk.setup(arr, rng=rng, timings=setup_t)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        setup_peak = torch.cuda.max_memory_allocated()
+        print(f"fflonk: setup {setup_s:.3f} s {json.dumps(setup_t)}, peak "
+              f"{setup_peak} B", flush=True)
+        t0 = time.perf_counter()
+        proof = fflonk.prove(pk, arr, publics, rng=rng,
+                             timings=prove_t)
+        torch.cuda.synchronize()
+        prove_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    made = collections.Counter(c[0] for c in wrap_calls)
+    _require(all(made[k] == launches[k] for k in FFLONK_KERNELS),
+             "each fr_poly call of the wrap launched its kernel once "
+             f"({dict(made)})")
     peak = torch.cuda.max_memory_allocated()
     gates = arr.n_gates
     del pk, arr
@@ -3061,7 +3286,7 @@ def phase_fflonk(torch, r1cs, witness) -> tuple[dict, dict, int]:
               "proof": fflonk.to_json(vk, proof, publics)["proof"]}
     print("fflonk: the devnet root's proof verifies; a changed z evaluation "
           "and a changed public refused", flush=True)
-    return launches, report, vk.n
+    return launches, report, vk.n, wrap_calls
 
 
 def main() -> int:
@@ -3140,11 +3365,11 @@ def main() -> int:
     del cas
     mark("7_8_checks")
     fixture = phase_fflonk_fixture(torch)
-    by_path["fflonk"], fflonk_report, fflonk_n = phase_fflonk(torch,
-                                                              *final_r1cs)
+    by_path["fflonk"], fflonk_report, fflonk_n, wrap_calls = phase_fflonk(
+        torch, *final_r1cs)
     del final_r1cs
     fflonk_report["fixture"] = fixture
-    rows += phase_fflonk_kernels(torch, fflonk_n)
+    rows += phase_fflonk_kernels(torch, fflonk_n, wrap_calls)
     mark("13_fflonk")
     by_path["service_fib"] = phase_service(torch)
     mark("9_service")

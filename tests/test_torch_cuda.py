@@ -584,6 +584,63 @@ def test_fr_div_binomial_kernel_matches_plain(gen, cuda_device, k):
         assert torch.equal(q, pq) and torch.equal(r, pr)
 
 
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("c", [1, 987654321])
+def test_fr_div_binomial_lookback_edges(gen, cuda_device, k, c):
+    """The look-back kernel at one tile, a ragged last tile, m < k and
+    some tiles, c = 1 (additions only) and not."""
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    tile = fr_poly._lb_tile(k)
+    for m in sorted({max(1, k - 1), tile, tile + 5, 7 * tile - 3}):
+        p = _fr_words(gen, m + k, cuda_device)
+        q, r = fr_poly.div_binomial(p, k, c)
+        pq, pr = fr_poly._div_binomial_plain(p, k, c)
+        assert torch.equal(q, pq) and torch.equal(r, pr), m
+
+
+@pytest.mark.parametrize("k,c", [(1, 987654321), (4, 1)])
+def test_fr_div_binomial_lookback_deep(gen, cuda_device, k, c):
+    """10^4 tiles: every quotient value satisfies q_j = p_{j+k} + c
+    q_{j+k} (checked by the plain arithmetic in chunks), which fixes q."""
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    from xlayer_prover_tpu_torch.ops.bn254_mont import FR
+    m = 10_007 * fr_poly._lb_tile(k) - 3
+    p = _fr_words(gen, m + k, cuda_device)
+    q, _ = fr_poly.div_binomial(p, k, c)
+    u = p[k:]
+    nxt = torch.cat([q[k:], torch.zeros((k, 4), dtype=torch.int64,
+                                        device=cuda_device)])
+    for a in range(0, m, 1 << 20):
+        b = min(m, a + (1 << 20))
+        nm = FR.to_mont(nxt[a:b])
+        rhs = FR.from_mont(FR.reduce(FR.add(
+            FR.to_mont(u[a:b]), FR.mul(nm, fr_poly._const(c, nm)))))
+        assert torch.equal(rhs, q[a:b]), a
+
+
+def test_fr_pointwise_kernel_past_the_low_table(gen, cuda_device):
+    """Each identity equal to its plain version with the domain past
+    2^DOMAIN_LO_BITS, so its blocks read several high powers."""
+    from xlayer_prover_tpu_torch.ops import fr_poly, ntt_fr
+    bits = fr_poly.DOMAIN_LO_BITS + 2
+    n = 1 << bits
+    ins = [_fr_words(gen, n, cuda_device) for _ in range(9)]
+    lens = [ins[0], ins[1][:n - 7], ins[2][:1]]
+    assert torch.equal(fr_poly.pointwise("lincomb", lens, [3, 5, 7]),
+                       fr_poly._pointwise_plain("lincomb", lens, [3, 5, 7],
+                                                1, 0))
+    assert torch.equal(fr_poly.pointwise("gate", ins[:9]),
+                       fr_poly._pointwise_plain("gate", ins[:9], [], 1, 0))
+    w = ntt_fr.root_of_unity(bits)
+    for g, f in zip(fr_poly.pointwise("perm_z", ins[:6], [5, 6], w),
+                    fr_poly._pointwise_plain("perm_z", ins[:6], [5, 6], w,
+                                             0)):
+        assert torch.equal(g, f)
+    assert torch.equal(
+        fr_poly.pointwise("perm_t2", ins[:7], [5, 6], w, 8),
+        fr_poly._pointwise_plain("perm_t2", ins[:7], [5, 6], w, 8))
+
+
 def test_fr_scan_mul_kernel_matches_plain(gen, cuda_device):
     from xlayer_prover_tpu_torch.ops import fr_poly
     for n in (1, 16, 17, 300, 1 << 16):

@@ -252,6 +252,38 @@ def test_finalize_keeps_the_circuit_a_second_wrap_proves(monkeypatch):
     assert (arr.vals == back.vals).all() and (arr.wires == back.wires).all()
 
 
+@pytest.mark.parametrize("constraints", [1, 9])
+def test_chip_smoke_times_the_wraps_calls(monkeypatch, constraints):
+    """chip_smoke.fflonk_wrap_calls, the rows that phase 13 (a) times with
+    their launches a wrap, are the fr_poly calls of an fflonk setup and
+    proof, lengths and counts (n = 8 and 256; the commitments are the
+    SRS's first point here, which changes no call's length).  Phase 13
+    (a) holds them to (c)'s launches at the devnet root's n."""
+    import collections
+
+    import chip_smoke
+    from xlayer_prover_tpu_torch.ops import ntt_fr
+    monkeypatch.setattr(fflonk, "_commit", lambda taus, poly:
+                        fflonk.bn254_msm.g1_points(taus[:1])[0])
+    r1cs, wit = plonk.seeded_r1cs(5, constraints)
+    arr = plonk.r1cs_to_arrays(r1cs, wit)
+    with chip_smoke.fr_poly_calls() as made:
+        pk, _vk = fflonk.setup(arr, rng=random.Random(11), device="cpu")
+        fflonk.prove(pk, arr, wit[1:1 + r1cs.n_public],
+                     rng=random.Random(12))
+    n = arr.n
+    big = torch.from_numpy(to_words(seeded(12 * 16 * n, 3)))
+    rows = collections.Counter()
+    for name, what, m, fn, _work, per in chip_smoke.fflonk_wrap_calls(
+            fflonk.fr_poly, ntt_fr, n,
+            lambda j, m: big[16 * n * j:16 * n * j + m], 12345, [3, 5, 7, 9]):
+        with chip_smoke.fr_poly_calls() as row:
+            fn()
+        assert len(row) == 1 and row[0][0] == name, what
+        rows[row[0]] += per
+    assert +rows == collections.Counter(made)
+
+
 def test_zero_poly_commits_as_jax():
     pts = fflonk._srs(fflonk.fr_poly.scan_mul(words([5]), True, n=3))
     want = jff._commit([(1, 2)] * 3, [0, 0, 0])

@@ -4,9 +4,9 @@ wrappers run on CPU tensors) against the Python-int models
 (``_*_model``) and the JAX package's fflonk helpers, exactly, on seeded
 inputs with the edges 0, 1, r - 1 and r - 2: every level boundary of the
 kernels' schedules (a fr_eval segment of EVAL_SEG values, a fr_scan_mul
-segment of SCAN_SEG, a fr_div_binomial segment of LIN_STEPS k), k from 1
-to past LIN_MAX_K (the short chains of X^n - 1), broadcast scans, inputs
-of their own lengths, each identity of fr_pointwise.  The kernels' own
+segment of SCAN_SEG), k from 1 to past LIN_MAX_K (the short chains of
+X^n - 1), broadcast scans, inputs of their own lengths, each identity of
+fr_pointwise.  The kernels' own
 constants are read out of the source.  The kernels themselves run only on
 the card (``tests/test_torch_cuda.py``).
 """
@@ -47,8 +47,9 @@ def test_constants_match_the_source():
 
     def define(name):
         return int(re.search(rf"#define {name} (\d+)", src).group(1))
-    for name in ("EVAL_POINTS", "EVAL_SEG", "SCAN_SEG", "LIN_STEPS",
-                 "LIN_MAX_K", "PW_INPUTS", "PW_CONSTS"):
+    for name in ("EVAL_POINTS", "EVAL_SEG", "SCAN_SEG", "LIN_MAX_K",
+                 "LB_THREADS", "LB_STEPS", "LB_WINDOW", "PW_THREADS",
+                 "PW_INPUTS", "PW_CONSTS"):
         assert define(name) == getattr(fr_poly, name), name
     for op, code in fr_poly.PW_OPS.items():
         assert define(f"PW_{op.upper()}") == code, op

@@ -74,11 +74,11 @@ _LIBS = {
                            _P, _P, ctypes.c_int64, _P],
         "fr_scan_mul_launch": [_P, ctypes.c_int64, ctypes.c_int64,
                                ctypes.c_int64, _P, _P, _P, ctypes.c_int, _P],
-        "fr_lin_scan_launch": [_P, ctypes.c_int64, ctypes.c_int,
-                               ctypes.c_int64, _P, _P, ctypes.c_int64, _P, _P,
-                               _P],
-        "fr_div_short_launch": [_P, ctypes.c_int64, ctypes.c_int64, _P, _P, _P,
-                                _P],
+        "fr_div_lookback_launch": [_P, ctypes.c_int64, ctypes.c_int,
+                                   ctypes.c_int, _P, _P, ctypes.c_int64, _P,
+                                   _P],
+        "fr_div_chain_launch": [_P, ctypes.c_int64, ctypes.c_int64,
+                                ctypes.c_int, _P, _P, _P, _P],
         "fr_pointwise_launch": [ctypes.c_int, _P, _P, ctypes.c_int, _P,
                                 ctypes.c_int, _P, _P, ctypes.c_int,
                                 ctypes.c_int64, _P, _P, ctypes.c_int64, _P],

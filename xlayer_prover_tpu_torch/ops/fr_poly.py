@@ -46,13 +46,16 @@ from .bn254_mont import FR, L, MONT, from_words, to_words
 EVAL_POINTS = 4
 EVAL_SEG = 32
 SCAN_SEG = 16
-LIN_STEPS = 16
 LIN_MAX_K = 8
+LB_THREADS = 128
+LB_STEPS = 16
+LB_WINDOW = 32
 PW_INPUTS = 9
 PW_CONSTS = 6
 PW_OPS = {"lincomb": 0, "mul": 1, "gate": 2, "perm_z": 3, "perm_t2": 4}
 K1, K2 = 2, 3                   # the permutation's coset shifts
 DOMAIN_LO_BITS = 14             # the domain tables: 2^14 low powers
+PW_THREADS = 128                # fr_pointwise: a value a thread
 
 
 def _mont(v: int) -> int:
@@ -372,24 +375,44 @@ def _scan_mul_launch(x, exclusive: bool, init: int, n):
                         init, kernels.stream_ptr(x.device))
 
 
-def _lin_levels(u, m: int, k: int, c: int, stream):
-    """The lin_level launches: y_j = u_j + c y_{j+k} over m values."""
-    dev = u.device
-    segs = -(-m // (LIN_STEPS * k))
-    out = torch.empty((m, 4), dtype=torch.int64, device=dev)
-    cw_arr = _words_arg([_mont(c)])              # alive for the calls
-    cw = ctypes.addressof(cw_arr)
-    nxt, nxt_len = None, 0
-    if segs > 1:
-        totals = torch.empty((segs * k, 4), dtype=torch.int64, device=dev)
-        _launch("fr_lin_scan_launch", u.data_ptr(), m, k, segs, cw, None, 0,
-                None, totals.data_ptr(), stream)
-        nxt = _lin_levels(totals, segs * k, k, pow(c, LIN_STEPS, R), stream)
-        nxt_len = segs * k
-    _launch("fr_lin_scan_launch", u.data_ptr(), m, k, segs, cw,
-            None if nxt is None else nxt.data_ptr(), nxt_len,
-            out.data_ptr(), None, stream)
-    return out
+def _lb_shape(k: int):
+    """(steps of a chain a thread, threads a chain) of the look-back
+    kernel at k <= LIN_MAX_K (csrc/fr_poly.cu's Lb): its tile holds that
+    many steps of each of the k chains."""
+    fits = LB_THREADS % k == 0 and LB_THREADS // k >= 16
+    return LB_STEPS, LB_THREADS // k if fits else 32
+
+
+def _lb_tile(k: int) -> int:
+    """Values a look-back tile holds."""
+    steps, threads = _lb_shape(k)
+    return k * steps * threads
+
+
+def _lb_status_words(k: int, tiles: int) -> int:
+    """32-bit words of the look-back's status scratch: the ticket (padded
+    to 4), a flag a tile (padded to 4), each tile's k aggregates and k
+    inclusive prefixes."""
+    return 4 + (tiles + 3) // 4 * 4 + 16 * k * tiles
+
+
+def _lb_powers(k: int, c: int) -> list:
+    """The look-back's LbPowers, Montgomery form: c, c^i for i < S, c^(S j)
+    for j < 32, c^(GL S j) for j <= LB_THREADS / 32, c^(TS d) for d <=
+    LB_WINDOW (S a thread's steps, GL the lanes of a chain's group, TS a
+    tile's steps of a chain)."""
+    steps, threads = _lb_shape(k)
+    lanes = min(32, threads)
+
+    def powers(base, count):
+        out, cur = [], 1
+        for _ in range(count):
+            out.append(_mont(cur))
+            cur = cur * base % R
+        return out
+    return ([_mont(c)] + powers(c, steps) + powers(pow(c, steps, R), 32)
+            + powers(pow(c, lanes * steps, R), LB_THREADS // 32 + 1)
+            + powers(pow(c, steps * threads, R), LB_WINDOW + 1))
 
 
 def div_binomial(p: torch.Tensor, k: int, c: int, exact: bool = False):
@@ -413,14 +436,23 @@ def div_binomial(p: torch.Tensor, k: int, c: int, exact: bool = False):
 
 
 def _div_binomial_launch(p: torch.Tensor, k: int, c: int):
-    """k <= LIN_MAX_K: the lin_level launches over u = p[k:], r on the
-    host from q's and p's first k values; else one div_short launch."""
+    """k <= LIN_MAX_K: one div_lookback launch over u = p[k:] (its status
+    scratch zeroed here), r on the host from q's and p's first k values;
+    else one div_chain launch, r on the card."""
     n, dev = p.shape[0], p.device
     m = n - k
     stream = kernels.stream_ptr(dev)
+    one = int(c == 1)
     if k <= LIN_MAX_K:
         if m > 0:
-            q = _lin_levels(p[k:], m, k, c, stream)
+            q = torch.empty((m, 4), dtype=torch.int64, device=dev)
+            tiles = -(-m // _lb_tile(k))
+            status = torch.zeros(_lb_status_words(k, tiles) // 2,
+                                 dtype=torch.int64, device=dev)
+            pw = _words_arg(_lb_powers(k, c))        # alive for the call
+            _launch("fr_div_lookback_launch", p[k:].data_ptr(), m, k, one,
+                    ctypes.addressof(pw), status.data_ptr(),
+                    8 * status.numel(), q.data_ptr(), stream)
         else:
             q = torch.zeros((1, 4), dtype=torch.int64, device=dev)
         lo = from_words(p[:min(k, n)]) + [0] * max(0, k - n)
@@ -429,11 +461,12 @@ def _div_binomial_launch(p: torch.Tensor, k: int, c: int):
         r = torch.from_numpy(to_words((a + c * b) % R for a, b in zip(lo, qk))
                              ).to(dev)
         return q, r
-    q = torch.zeros((max(1, m), 4), dtype=torch.int64, device=dev)
+    q = (torch.empty if m > 0 else torch.zeros)(
+        (max(1, m), 4), dtype=torch.int64, device=dev)
     r = torch.empty((k, 4), dtype=torch.int64, device=dev)
     cw = _words_arg([_mont(c)])
-    _launch("fr_div_short_launch", p.data_ptr(), n, k, ctypes.addressof(cw),
-            q.data_ptr(), r.data_ptr(), stream)
+    _launch("fr_div_chain_launch", p.data_ptr(), n, k, one,
+            ctypes.addressof(cw), q.data_ptr(), r.data_ptr(), stream)
     return q, r
 
 
@@ -480,21 +513,28 @@ def pointwise(op: str, inputs, consts=(), w: int = 1, shift: int = 0):
     return _pointwise_launch(op, inputs, consts, w, shift, n)
 
 
+def _pointwise_consts(op: str, consts: list) -> list:
+    """The kernel's constants of identity `op` (csrc/fr_poly.cu's
+    pointwise), from the wrapper's: the lincomb's k_j and beta Montgomery
+    form, the mul's k times 2^512, gamma canonical, and the fix of each
+    identity's Montgomery form: 2^768 for the gate's and perm_z's
+    (G' / R^2, num / R^2), 2^1024 for perm_t2's (.. / R^3)."""
+    if op == "lincomb":
+        return [_mont(k) for k in consts]
+    if op == "mul":
+        return [consts[0] * MONT * MONT % R]
+    if op == "gate":
+        return [pow(MONT, 3, R)]
+    beta, gamma = consts
+    return [_mont(beta), gamma, pow(MONT, 3 if op == "perm_z" else 4, R)]
+
+
 def _pointwise_launch(op: str, inputs, consts: list, w: int, shift: int,
                       n: int):
     dev = inputs[0].device
     out = torch.empty((n, 4), dtype=torch.int64, device=dev)
     out2 = torch.empty_like(out) if op == "perm_z" else None
-    if op == "lincomb":
-        ks = [_mont(k) for k in consts]
-    elif op == "mul":
-        ks = [consts[0] * MONT * MONT % R]
-    elif op == "gate":
-        ks = []
-    else:
-        beta, gamma = consts
-        ks = [_mont(beta), gamma, _mont(K1 * beta), _mont(K2 * beta),
-              pow(MONT, 3, R), pow(MONT, 4, R)]
+    ks = _pointwise_consts(op, consts)
     lo = hi = None
     lo_bits = 0
     if op in ("perm_z", "perm_t2"):

@@ -34,8 +34,8 @@ pipeline does
 In both layouts the quotient and round 5 run over row windows sized from
 what the budget leaves (``window_rows``).  Where a window covers the
 domain and the sections lie on the device, the quotient evaluates whole
-columns and round 5 takes the ev_map an entry at a time, as before the
-plan.  The proof is the same bytes in every layout and window size.
+columns.  Round 5 takes the ev_map's columns a chunk at a time in every
+layout.  The proof is the same bytes in every layout and window size.
 """
 
 from __future__ import annotations
@@ -89,10 +89,9 @@ EVAL_WINDOW_BYTES_PER_SECTION_BYTE = 0.25
 # The share of the budget the windows may fill, the plan's own residency
 # threshold (memory_plan: resident when the sections fit 0.75 of it).
 BUDGET_SHARE = 0.75
-# Round 5 over windows, or over sections in host memory, takes the
-# ev_map's columns this many at a time (one section, shift and
-# dimension): a few launches a chunk, where an entry at a time would
-# repeat tens of launches an entry in every window.
+# Round 5 takes the ev_map's columns this many at a time (one section,
+# shift and dimension): a few launches a chunk, where an entry at a time
+# would repeat tens of launches an entry in every window.
 EV_CHUNK = 64
 
 
@@ -574,19 +573,11 @@ def round5(air, sections_ext, ch, x_ext, phase: str, evals_arr=None,
     sum_i L_s(i) * column(i) over every blowup-th row of the extended
     domain.  phase "fri": the DEEP/FRI polynomial (gl3 triple over the
     ext domain) from `evals_arr`: sum over shifts s of v2^s x / (x - xi
-    w^s) sum_j (column_j - ev_j) v1^j.
-
-    One window over the domain (`rows` None or n_ext) with every section
-    on the device, as in a resident plan, takes the ev_map an entry at a
-    time.  Windows of `rows` rows, or sections in host memory, take its
-    columns EV_CHUNK at a time (``_round5_windows``)."""
+    w^s) sum_j (column_j - ev_j) v1^j.  Over windows of `rows` rows (one
+    window over the domain when None), the ev_map's columns EV_CHUNK at a
+    time (``_round5_windows``)."""
     if phase not in ("evals", "fri"):
         raise ValueError(f"round5: unknown phase {phase!r}")
-    device = x_ext.device
-    if (rows is None or rows == air.n_ext) and all(
-            sec.device.type == device.type for sec in sections_ext.values()):
-        return _round5_entries(air, sections_ext, ch, x_ext, phase,
-                               evals_arr)
     return _round5_windows(air, sections_ext, ch, x_ext, phase, evals_arr,
                            air.n_ext if rows is None else rows)
 
@@ -599,54 +590,6 @@ def _ev_weights(air, ch, device) -> dict:
     return {s_: _lagrange_weights(gl3.mul_base(xi, dev.scalar(
         (pow(w_n, s_, P) * shift_inv) % P, device)), air.n_bits)
         for s_ in sorted({e.shift for e in air.ev_map})}
-
-
-def _round5_entries(air, sections_ext, ch, x_ext, phase, evals_arr):
-    """round5 over the whole domain on the device, an ev_map entry at a
-    time."""
-    n_ext = air.n_ext
-    blowup = n_ext // air.n
-    device = x_ext.device
-    shifts = sorted({e.shift for e in air.ev_map})
-    w_n = gl.host_w(air.n_bits)
-    xi = tuple(ch[CH_XI, k] for k in range(3))
-    if phase == "evals":
-        weights = _ev_weights(air, ch, device)
-        evals = []
-        for entry in air.ev_map:
-            samp = sections_ext[entry.section][::blowup]
-            w3 = weights[entry.shift]
-            if entry.dim == 1:
-                col = samp[:, entry.index]
-                prod = tuple(gl.mul(w, col) for w in w3)
-            else:
-                prod = gl3.mul(w3, tuple(samp[:, entry.index + k]
-                                         for k in range(3)))
-            evals.append(torch.stack(list(gl3.sum_axis(prod, axis=0))))
-        return torch.stack(evals)
-    v1 = tuple(ch[CH_V1, k] for k in range(3))
-    v2 = tuple(ch[CH_V2, k] for k in range(3))
-    v1_pow = gl3.ones((), device)
-    accs = {s_: gl3.zeros((n_ext,), device) for s_ in shifts}
-    for j, entry in enumerate(air.ev_map):
-        sec = sections_ext[entry.section]
-        if entry.dim == 1:
-            colv = gl3.from_base(sec[:, entry.index])
-        else:
-            colv = tuple(sec[:, entry.index + k] for k in range(3))
-        ev3 = tuple(evals_arr[j, k] for k in range(3))
-        term = gl3.mul(gl3.sub(colv, ev3), v1_pow)
-        accs[entry.shift] = gl3.add(accs[entry.shift], term)
-        v1_pow = gl3.mul(v1_pow, v1)
-    fri_pol = gl3.zeros((n_ext,), device)
-    v2_pow = gl3.ones((), device)
-    for s_ in shifts:
-        pt = gl3.mul_base(xi, dev.scalar(pow(w_n, s_, P), device))
-        xdiv = _x_div_x_sub(x_ext, pt)
-        fri_pol = gl3.add(fri_pol,
-                          gl3.mul(gl3.mul(accs[s_], xdiv), v2_pow))
-        v2_pow = gl3.mul(v2_pow, v2)
-    return fri_pol
 
 
 def _round5_windows(air, sections_ext, ch, x_ext, phase, evals_arr,
