@@ -200,9 +200,13 @@ Phases (any failure exits non-zero and prints no result line):
      evaluations, each commitment), verification's, the peaks and the
      launches print as the ``fflonk`` line; (a) fr_eval,
      fr_div_binomial, fr_scan_mul and fr_pointwise bit-equal to their
-     plain versions at small shapes (level and chain boundaries, the
-     look-back's tile edges, and ~10^5 tiles checked by the division's
-     identity at random points) and at 2^20 rows of each devnet use, then
+     plain versions at small shapes (chain boundaries, the look-back's
+     tile edges, and ~10^5 tiles checked by the division's identity at
+     random points; fr_eval at 5 to 9 points about its tile and past its
+     grid, every coefficient r - 1; fr_scan_mul's product look-back,
+     prefix and suffix, over up to 514 tiles, its repeated form across
+     its tables' 2^L and at tau^i's length against the host) and at 2^20
+     rows of each devnet use, then
      timed at every shape of (c)'s wrap with their bounds and launches a
      wrap (the kernels line's rows, ``launches`` from the ``fflonk``
      path; a line of launches x (ms - bound) a wrap for each kernel);
@@ -264,6 +268,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import os
 import sys
@@ -2696,8 +2701,10 @@ def fr_poly_work(name: str, **kw) -> dict:
     """Bytes and 32-bit multiplies of one call of a fr_poly kernel's
     function, whatever computes it: each input read and each output
     written once, a Montgomery product (FR_MUL) for each product the
-    function needs.  fr_eval: n coefficients, m points (a product a
-    coefficient a point); fr_div_binomial: n coefficients by X^k - c (a
+    function needs.  fr_eval: n coefficients, m points (a full product,
+    FR_PROD32, a coefficient a point, and one reduction a point: the
+    powers of x can weigh the coefficients unreduced, as fr_eval's
+    512-bit sums do); fr_div_binomial: n coefficients by X^k - c (a
     product a quotient and a remainder value by the recurrence
     q_j = p_{j+k} + c q_{j+k}, none where c = 1); fr_scan_mul: n outputs
     of n inputs (or one repeated), a product each; fr_pointwise: `inputs` vectors of n
@@ -2713,7 +2720,8 @@ def fr_poly_work(name: str, **kw) -> dict:
     product fewer), and `timed` takes the lesser bound of the two."""
     if name == "fr_eval":
         n, m = kw["n"], kw["m"]
-        return {"bytes": 32 * (n + m), "ops": n * m * FR_MUL}
+        return {"bytes": 32 * (n + m),
+                "ops": n * m * FR_PROD32 + m * FR_REDC32}
     if name == "fr_div_binomial":
         n, k = kw["n"], kw["k"]
         products = 0 if kw["c"] == 1 else max(0, n - k) + k
@@ -2743,8 +2751,8 @@ FR_POLY_WRAPPERS = {"fr_eval": "evaluate", "fr_div_binomial": "div_binomial",
 def _fr_poly_call(name: str, fn, args, kw) -> tuple:
     """What sets the work of one call of fr_poly's wrapper `fn` of kernel
     `name`: fr_eval (length, points); fr_div_binomial (length, k, c ==
-    1); fr_scan_mul (length, repeated, exclusive); fr_pointwise (the
-    identity, each input's length)."""
+    1); fr_scan_mul (length, repeated, exclusive, reverse); fr_pointwise
+    (the identity, each input's length)."""
     import inspect
 
     from xlayer_prover_tpu_torch.fields.bn254 import R as r
@@ -2758,7 +2766,7 @@ def _fr_poly_call(name: str, fn, args, kw) -> tuple:
     if name == "fr_scan_mul":
         rep = a["n"] is not None
         return (name, a["n"] if rep else a["x"].shape[0], rep,
-                bool(a["exclusive"]))
+                bool(a["exclusive"]), bool(a.get("reverse", False)))
     return (name, a["op"], tuple(x.shape[0] for x in a["inputs"]))
 
 
@@ -2772,6 +2780,7 @@ def fr_poly_calls():
     for name, attr in FR_POLY_WRAPPERS.items():
         fn = saved[attr] = getattr(fr_poly, attr)
 
+        @functools.wraps(fn)
         def rec(*args, _name=name, _fn=fn, **kw):
             calls.append(_fr_poly_call(_name, _fn, args, kw))
             return _fn(*args, **kw)
@@ -2796,6 +2805,9 @@ def fflonk_wrap_calls(fr_poly, ntt_fr, n: int, sl, y: int, ks) -> list:
     and proof made (fr_poly_calls).  fr_eval's first two rows (at 9n +
     21, the shapes its row was first timed at) are no call of the
     wrap."""
+    import inspect
+
+    import torch
     c0, c1, c2 = 8 * n, 8 * n + 8, 9 * n + 18
     w8 = ntt_fr.root_of_unity((8 * n).bit_length() - 1)
     w1 = ntt_fr.root_of_unity(n.bit_length() - 1)
@@ -2834,15 +2846,25 @@ def fflonk_wrap_calls(fr_poly, ntt_fr, n: int, sl, y: int, ks) -> list:
                       lambda m=m, k=k, c=c: fr_poly.div_binomial(
                           sl(0, m), k, c),
                       fr_poly_work("fr_div_binomial", n=m, k=k, c=c), per))
-    for m, repeated, exclusive, what, per in (
-            (10 * n + 41, True, True, "tau^i", 1),
-            (n - 1, False, False, "z's running product", 1),
-            (n - 1, False, True, "the denominators' suffix products", 1),
-            (n, True, True, "the tags k w^i", 3)):
+    def scan(m, rep, ex, rev):
+        if rep:
+            return fr_poly.scan_mul(sl(0, 1), ex, y, n=m)
+        if not rev:
+            return fr_poly.scan_mul(sl(0, m), ex)
+        if "reverse" in inspect.signature(fr_poly.scan_mul).parameters:
+            return fr_poly.scan_mul(sl(0, m), ex, reverse=True)
+        # a tree before the reverse scan: the scan of the reversed copy
+        return torch.flip(fr_poly.scan_mul(torch.flip(sl(0, m), [0])
+                                           .contiguous(), ex), [0])
+    for m, repeated, exclusive, rev, what, per in (
+            (10 * n + 41, True, True, False, "tau^i", 1),
+            (n - 1, False, False, False, "z's running product", 1),
+            (n - 1, False, True, True, "the denominators' suffix products",
+             1),
+            (n, True, True, False, "the tags k w^i", 3)):
         calls.append(("fr_scan_mul", what, m,
-                      lambda m=m, rep=repeated, ex=exclusive:
-                      fr_poly.scan_mul(sl(0, 1), ex, y, n=m) if rep
-                      else fr_poly.scan_mul(sl(0, m), ex),
+                      lambda m=m, rep=repeated, ex=exclusive, rev=rev:
+                      scan(m, rep, ex, rev),
                       fr_poly_work("fr_scan_mul", n=m, repeated=repeated),
                       per))
     pw("T2's identity", 8 * n, 7, 1, 11, lambda: fr_poly.pointwise(
@@ -2898,12 +2920,17 @@ def _rand_fr(torch, n: int, dev, gen=None):
 def phase_fflonk_kernels(torch, n: int, wrap_calls: list) -> list:
     """Phase 13 (a): fr_eval, fr_div_binomial, fr_scan_mul and
     fr_pointwise each held bit for bit against its plain version on the
-    card at small shapes (the edges of a level and of a chain: 1, 33 and
+    card at small shapes (small inputs and a chain's edges: 1, 33 and
     4,101 values, k = 1, 3, 8, 9, 2^10, broadcast scans, inputs of their
     own lengths, domains of 1, 2^5 and 2^15; fr_div_binomial's look-back
     at k = 1, 3, 4, 8 with c = 1 and not over m < k, one tile, a ragged
     last tile and three, and over LOOKBACK_DEEP_TILES tiles by the
-    division's identity at random points) and at PLAIN_SAMPLE rows of
+    division's identity at random points; fr_eval at 5, 8 and 9 points
+    about one tile, at 2 points where a block takes two tiles, and over
+    coefficients all r - 1; fr_scan_mul's product look-back over 1 to
+    514 tiles, prefix and suffix, inclusive and exclusive, its
+    repeated form across 2^L of its tables, and tau^i's length at 10
+    positions against the host) and at PLAIN_SAMPLE rows of
     each devnet use (every division's binomial; fr_pointwise's T2
     identity, perm_z, the gate, L, W, T1's scale and z's product), then
     timed at the devnet root's
@@ -2988,6 +3015,58 @@ def phase_fflonk_kernels(torch, n: int, wrap_calls: list) -> list:
              fr_poly.pointwise("perm_t2", ins, bg, w, 8 % m),
              fr_poly._pointwise_plain("perm_t2", ins, bg, w, 8 % m),
              f"perm_t2 at 2^{bits}")
+    # -- fr_eval's and fr_scan_mul's designs at their edges: 5 to 8 points
+    # in one pass and 9 in two about one tile; a block's Horner over two
+    # tiles (one more than the grid's); every coefficient r - 1 (the
+    # 512-bit sums at their largest terms); the product look-back over
+    # one, a ragged and 513 tiles, prefix and suffix, inclusive and
+    # exclusive; the repeated scan's two tables across 2^L, and tau^i's
+    # length against the host ---------------------------------------------
+    tile = fr_poly.EVAL_TILE
+    for m in (tile - 1, tile, tile + 1):
+        p = rand(m)
+        for pts in (5, 8, 9):
+            xs = [r - 1, 0, 1] + [pyrng.randrange(r) for _ in range(pts - 3)]
+            same("fr_eval", fr_poly.evaluate(p, xs),
+                 fr_poly._eval_plain(p, xs), f"{m} values, {pts} points")
+    m = (fr_poly._eval_blocks(1 << 40, cuda) + 1) * tile + 5
+    p = rand(m)
+    xs = [r - 1, pyrng.randrange(r)]
+    same("fr_eval", fr_poly.evaluate(p, xs), fr_poly._eval_plain(p, xs),
+         f"{m} values (a block's two tiles), 2 points")
+    p = words([r - 1]).repeat(3 * tile + 1, 1)
+    xs = [r - 1, r - 2] + [pyrng.randrange(r) for _ in range(6)]
+    same("fr_eval", fr_poly.evaluate(p, xs), fr_poly._eval_plain(p, xs),
+         "every coefficient r - 1, 8 points")
+    lb = fr_poly._lb_tile(1)
+    for m in (1, lb - 1, lb, lb + 1, 3 * lb - 7, 513 * lb + 3):
+        p = rand(m)
+        init = pyrng.randrange(r)
+        for ex in (False, True):
+            for rev in (False, True):
+                same("fr_scan_mul", fr_poly.scan_mul(p, ex, init,
+                                                     reverse=rev),
+                     fr_poly._scan_mul_plain(p, ex, init, None, rev),
+                     f"look-back, {m} values, exclusive {ex}, reverse {rev}")
+    for m in (1, 2, 3, 255, 256, 257, 4097, (1 << 20) + 3):
+        one = words([pyrng.randrange(r)])
+        init = pyrng.randrange(r)
+        for ex in (False, True):
+            same("fr_scan_mul", fr_poly.scan_mul(one, ex, init, n=m),
+                 fr_poly._scan_mul_plain(one, ex, init, m),
+                 f"{m} repeated (2^{fr_poly._pow_split(m)[0]} low powers), "
+                 f"exclusive {ex}")
+    m = 10 * n + 41
+    xv, init = pyrng.randrange(r), pyrng.randrange(r)
+    lo_bits = fr_poly._pow_split(m)[0]
+    at = [0, 1, (1 << lo_bits) - 1, 1 << lo_bits, m // 2, m - 1] + [
+        pyrng.randrange(m) for _ in range(4)]
+    got = fr_poly.scan_mul(words([xv]), True, init, n=m)
+    same("fr_scan_mul", from_words(got[at]),
+         [init * pow(xv, i, r) % r for i in at],
+         f"{m} repeated (tau^i's length), 10 positions against the host")
+    del p, got
+    torch.cuda.empty_cache()
     # -- the look-back kernel (k <= LIN_MAX_K) at its edges: m < k, one
     # tile, a ragged last tile, a few tiles; c = 1 (additions) and not ---
     for k in (1, 3, 4, 8):

@@ -572,6 +572,51 @@ def test_fr_eval_kernel_matches_plain(gen, cuda_device, n):
     assert got == fr_poly._eval_plain(p, xs)
 
 
+@pytest.mark.parametrize("points", [5, 8, 9, 17])
+def test_fr_eval_kernel_many_points(gen, cuda_device, points):
+    """Up to EVAL_POINTS points in one pass (more in passes of 8), one
+    tile, either side of it and more tiles than the grid's blocks; every
+    coefficient r - 1."""
+    from xlayer_prover_tpu_torch.fields.bn254 import R
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    tile = fr_poly.EVAL_TILE
+    grid = fr_poly._eval_blocks(1 << 40, cuda_device)
+    xs = [R - 1, 0, 1] + [(7 ** j) % R for j in range(points - 3)]
+    for n in (tile - 1, tile, tile + 1, 2 * grid * tile + 5):
+        p = _fr_words(gen, n, cuda_device)
+        assert fr_poly.evaluate(p, xs) == fr_poly._eval_plain(p, xs), n
+    p = torch.from_numpy(bn254_mont.to_words([R - 1])).to(
+        cuda_device).repeat(3 * tile + 1, 1)
+    assert fr_poly.evaluate(p, xs) == fr_poly._eval_plain(p, xs)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_fr_scan_mul_lookback_edges(gen, cuda_device, reverse):
+    """The product look-back at one value, one tile, a ragged last tile
+    and over a thousand tiles, prefix and suffix, inclusive and
+    exclusive."""
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    tile = fr_poly._lb_tile(1)
+    for m in (1, tile - 1, tile, tile + 1, 3 * tile - 7, 1025 * tile + 3):
+        x = _fr_words(gen, m, cuda_device)
+        for exclusive in (False, True):
+            got = fr_poly.scan_mul(x, exclusive, 777, reverse=reverse)
+            assert torch.equal(got, fr_poly._scan_mul_plain(
+                x, exclusive, 777, None, reverse)), (m, exclusive)
+
+
+def test_fr_scan_mul_repeated_across_its_tables(gen, cuda_device):
+    """The repeated scan's two tables: lengths at and around 2^L of the
+    split, inclusive and exclusive."""
+    from xlayer_prover_tpu_torch.ops import fr_poly
+    x = _fr_words(gen, 5, cuda_device)[4:]
+    for n in (1, 2, 3, 255, 256, 257, 4097, (1 << 20) + 3):
+        for exclusive in (False, True):
+            got = fr_poly.scan_mul(x, exclusive, 99, n=n)
+            assert torch.equal(got, fr_poly._scan_mul_plain(
+                x, exclusive, 99, n)), (n, exclusive)
+
+
 @pytest.mark.parametrize("k", [1, 3, 4, 8, 9, 1 << 12])
 def test_fr_div_binomial_kernel_matches_plain(gen, cuda_device, k):
     from xlayer_prover_tpu_torch.ops import fr_poly

@@ -3,8 +3,8 @@ CPU: their plain PyTorch versions (``ops/fr_poly._*_plain``, which the
 wrappers run on CPU tensors) against the Python-int models
 (``_*_model``) and the JAX package's fflonk helpers, exactly, on seeded
 inputs with the edges 0, 1, r - 1 and r - 2: every level boundary of the
-kernels' schedules (a fr_eval segment of EVAL_SEG values, a fr_scan_mul
-segment of SCAN_SEG), k from 1 to past LIN_MAX_K (the short chains of
+kernels' schedules (a fr_eval tile of EVAL_THREADS EVAL_SEG values, a
+look-back tile), k from 1 to past LIN_MAX_K (the short chains of
 X^n - 1), broadcast scans, inputs of their own lengths, each identity of
 fr_pointwise.  The kernels' own
 constants are read out of the source.  The kernels themselves run only on
@@ -47,15 +47,17 @@ def test_constants_match_the_source():
 
     def define(name):
         return int(re.search(rf"#define {name} (\d+)", src).group(1))
-    for name in ("EVAL_POINTS", "EVAL_SEG", "SCAN_SEG", "LIN_MAX_K",
+    for name in ("EVAL_POINTS", "EVAL_THREADS", "EVAL_SEG", "EVAL_SQ",
+                 "EVAL_MIN_BLOCKS", "POW_SQ", "POW_THREADS", "LIN_MAX_K",
                  "LB_THREADS", "LB_STEPS", "LB_WINDOW", "PW_THREADS",
                  "PW_INPUTS", "PW_CONSTS"):
         assert define(name) == getattr(fr_poly, name), name
+    assert 1 << define("EVAL_THREADS_LOG2") == fr_poly.EVAL_THREADS
     for op, code in fr_poly.PW_OPS.items():
         assert define(f"PW_{op.upper()}") == code, op
     # every entry point the wrappers call is in the library's table
     assert set(kernels._LIBS["fr_poly"][1]) == set(re.findall(
-        r"^int (fr_\w+_launch)\(", src, re.M))
+        r"^int (fr_\w+)\(", src, re.M))
     for name in ("fr_eval", "fr_div_binomial", "fr_scan_mul",
                  "fr_pointwise"):
         assert name in kernels.LAUNCHES

@@ -71,9 +71,15 @@ _LIBS = {
     }),
     "fr_poly": ("fr_poly.cu", {
         "fr_eval_launch": [_P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                           _P, _P, ctypes.c_int64, _P],
-        "fr_scan_mul_launch": [_P, ctypes.c_int64, ctypes.c_int64,
-                               ctypes.c_int64, _P, _P, _P, ctypes.c_int, _P],
+                           _P, ctypes.c_int64, _P, _P],
+        "fr_eval_occupancy": [],
+        "fr_pow_tables_launch": [_P, _P, ctypes.c_int, ctypes.c_int64, _P,
+                                 _P, _P],
+        "fr_pow_values_launch": [_P, _P, ctypes.c_int, ctypes.c_int64,
+                                 ctypes.c_int64, _P, _P],
+        "fr_scan_lookback_launch": [_P, ctypes.c_int64, _P, ctypes.c_int,
+                                    ctypes.c_int, _P, ctypes.c_int64, _P,
+                                    _P],
         "fr_div_lookback_launch": [_P, ctypes.c_int64, ctypes.c_int,
                                    ctypes.c_int, _P, _P, ctypes.c_int64, _P,
                                    _P],

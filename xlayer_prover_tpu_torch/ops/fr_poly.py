@@ -12,9 +12,10 @@ Fr words (``ops/bn254_mont.to_words``).
   * ``div_binomial(p, k, c)``: (q, r) with p = q (X^k - c) + r, q of
     max(1, n - k) values and r of k; the JAX ``pdivmod`` asserts that
     r = 0 where it divides exactly, and so do the callers here.
-  * ``scan_mul(x, exclusive, init, n)``: init times the prefix products of
-    x (inclusive, or exclusive from init); with ``n``, x is one value
-    repeated n times, so the result is init x^i.
+  * ``scan_mul(x, exclusive, init, n, reverse)``: init times the prefix
+    products of x (inclusive, or exclusive from init), or with
+    ``reverse`` its suffix products; with ``n``, x is one value repeated
+    n times, so the result is init x^i (in that order only).
   * ``pointwise(op, inputs, consts, ...)``: one identity of PW_OPS over
     the inputs' values: ``lincomb`` (sum_j k_j x_j, each input zero past
     its own length), ``mul`` (k x_0 x_1), ``gate`` (qM a b + qL a + qR b +
@@ -23,7 +24,7 @@ Fr words (``ops/bn254_mont.to_words``).
     denominator).
 
 On a CUDA tensor each launches its kernel of ``csrc/fr_poly.cu`` (one
-count in ``kernels.LAUNCHES`` a call, whatever its levels' launches), and
+count in ``kernels.LAUNCHES`` a call, whatever its device launches), and
 raises if the library does not build or a launch fails; on a CPU tensor it
 runs its plain PyTorch version (``_*_plain``, over ``bn254_mont.FR``).
 ``_*_model`` are the same functions on Python ints, which the CPU tests
@@ -43,9 +44,14 @@ from ..fields.bn254 import R
 from .bn254_mont import FR, L, MONT, from_words, to_words
 
 # csrc/fr_poly.cu's constants (a CPU test reads them there)
-EVAL_POINTS = 4
-EVAL_SEG = 32
-SCAN_SEG = 16
+EVAL_POINTS = 8
+EVAL_THREADS = 128
+EVAL_SEG = 16
+EVAL_SQ = 11
+EVAL_MIN_BLOCKS = 4
+EVAL_TILE = EVAL_THREADS * EVAL_SEG      # coefficients a fr_eval tile
+POW_SQ = 32
+POW_THREADS = 512
 LIN_MAX_K = 8
 LB_THREADS = 128
 LB_STEPS = 16
@@ -111,7 +117,10 @@ def _div_binomial_model(p: list, k: int, c: int):
     return q, r
 
 
-def _scan_mul_model(x: list, exclusive: bool, init: int = 1) -> list:
+def _scan_mul_model(x: list, exclusive: bool, init: int = 1,
+                    reverse: bool = False) -> list:
+    if reverse:
+        return _scan_mul_model(x[::-1], exclusive, init)[::-1]
     out, acc = [], init % R
     for v in x:
         if exclusive:
@@ -204,9 +213,13 @@ def _eval_plain(p: torch.Tensor, points) -> list:
 
 
 def _scan_mul_plain(x: torch.Tensor, exclusive: bool, init: int,
-                    n: int | None) -> torch.Tensor:
-    """Plain PyTorch version of the fr_scan_mul kernel: a log-step scan
-    (x one value repeated n times when `n` is given)."""
+                    n: int | None, reverse: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the fr_scan_mul kernels: a log-step scan
+    (x one value repeated n times when `n` is given; `reverse`: the
+    suffix products, the scan of x reversed, reversed)."""
+    if reverse:
+        return torch.flip(_scan_mul_plain(torch.flip(x, [0]), exclusive,
+                                          init, n), [0])
     if n is not None:
         y = _powers_plain(from_words(x[:1])[0], n + 1, x.device, init)
         return FR.from_mont(y[:n] if exclusive else y[1:])
@@ -310,69 +323,119 @@ def evaluate(p: torch.Tensor, points) -> list:
     return _evaluate_launch(p, points)
 
 
+@functools.lru_cache(maxsize=None)
+def _eval_occupancy() -> int:
+    """Blocks of eval_pass an SM can hold (at least EVAL_MIN_BLOCKS, its
+    launch bounds)."""
+    blocks = _lib().fr_eval_occupancy()
+    if blocks < 1:
+        raise RuntimeError("fr_eval: no occupancy")
+    return blocks
+
+
+def _eval_blocks(n: int, device) -> int:
+    """fr_eval's grid over n coefficients: the blocks the card holds at
+    once, no more than its tiles, and no more than one tile of the
+    finishing pass."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(-(-n // EVAL_TILE), sms * _eval_occupancy(), EVAL_TILE)
+
+
+def _eval_args(points: list, blocks: int) -> ctypes.Array:
+    """fr_eval's EvalArgs, Montgomery form: each point's x^(2^b) for b <
+    EVAL_SQ, then each point's x^(EVAL_TILE blocks), EVAL_POINTS of each
+    (zeros past the points)."""
+    pad = EVAL_POINTS - len(points)
+    sq = []
+    for x in points:
+        for _ in range(EVAL_SQ):
+            sq.append(_mont(x))
+            x = x * x % R
+    ys = [_mont(pow(x, EVAL_TILE * blocks, R)) for x in points]
+    return _words_arg(sq + [0] * (EVAL_SQ * pad) + ys + [0] * pad)
+
+
 def _evaluate_launch(p: torch.Tensor, points: list) -> list:
-    """The fr_eval launches: a level a launch, EVAL_POINTS points at a
-    time."""
-    stream = kernels.stream_ptr(p.device)
+    """EVAL_POINTS points at a time: one fr_eval pass over p, then (with
+    more than one block) one block over the blocks' values, a polynomial
+    in x^EVAL_TILE."""
+    dev, n = p.device, p.shape[0]
+    stream = kernels.stream_ptr(dev)
+    blocks = _eval_blocks(n, dev)
     out_vals = []
     for g in range(0, len(points), EVAL_POINTS):
         xs = points[g:g + EVAL_POINTS]
-        cur, row, n = p, 0, p.shape[0]
-        while True:
-            segs = -(-n // EVAL_SEG)
-            out = torch.empty((len(xs) * segs, 4), dtype=torch.int64,
-                              device=p.device)
-            xw = _words_arg(_mont(x) for x in xs)    # alive for the call
-            _launch("fr_eval_launch", cur.data_ptr(), row, n, len(xs),
-                    ctypes.addressof(xw), out.data_ptr(), segs, stream)
-            if segs == 1:
-                break
-            cur, row, n = out, segs, segs
-            xs = [pow(x, EVAL_SEG, R) for x in xs]
-        out_vals += from_words(out)
+        part = torch.empty((len(xs) * blocks, 4), dtype=torch.int64,
+                           device=dev)
+        args = _eval_args(xs, blocks)                # alive for the call
+        _launch("fr_eval_launch", p.data_ptr(), 0, n, len(xs),
+                ctypes.addressof(args), blocks, part.data_ptr(), stream)
+        if blocks > 1:
+            vals = torch.empty((len(xs), 4), dtype=torch.int64, device=dev)
+            fin = _eval_args([pow(x, EVAL_TILE, R) for x in xs], 1)
+            _launch("fr_eval_launch", part.data_ptr(), blocks, blocks,
+                    len(xs), ctypes.addressof(fin), 1, vals.data_ptr(),
+                    stream)
+            part = vals
+        out_vals += from_words(part)
     return out_vals
 
 
-def _scan_levels(x, xstride: int, n: int, exclusive: bool, carry_init: int,
-                 stream):
-    """The scan_level launches over n values; -> (n, 4) words."""
-    dev = x.device
-    segs = -(-n // SCAN_SEG)
-    out = torch.empty((n, 4), dtype=torch.int64, device=dev)
-    if segs == 1:
-        carry = torch.from_numpy(to_words([carry_init % R])).to(dev)
-    else:
-        totals = torch.empty((segs, 4), dtype=torch.int64, device=dev)
-        _launch("fr_scan_mul_launch", x.data_ptr(), xstride, n, segs, None,
-                None, totals.data_ptr(), 0, stream)
-        carry = _scan_levels(totals, 1, segs, True, carry_init, stream)
-    _launch("fr_scan_mul_launch", x.data_ptr(), xstride, n, segs,
-            carry.data_ptr(), out.data_ptr(), None, int(exclusive), stream)
-    return out
-
-
 def scan_mul(x: torch.Tensor, exclusive: bool = False, init: int = 1,
-             n: int | None = None) -> torch.Tensor:
+             n: int | None = None, reverse: bool = False) -> torch.Tensor:
     """init times the prefix products of the (m, 4) words x, inclusive
-    (out_i = init x_0 .. x_i) or exclusive (out_i = init x_0 .. x_{i-1});
-    with `n`, x (one row) is repeated n times.  Wrapper of the
-    ``fr_scan_mul`` kernel: a CPU tensor takes the plain version."""
+    (out_i = init x_0 .. x_i) or exclusive (out_i = init x_0 .. x_{i-1}),
+    or with `reverse` the suffix products (out_i = init x_i .. x_{m-1},
+    or x_{i+1} .. x_{m-1}); with `n`, x (one row) is repeated n times
+    (prefix products only).  Wrapper of the ``fr_scan_mul`` kernels: a
+    CPU tensor takes the plain version."""
     _check("scan_mul", x)
-    if n is not None and x.shape[0] != 1:
-        raise ValueError("scan_mul: one value to repeat expected")
+    if n is not None and (x.shape[0] != 1 or reverse):
+        raise ValueError("scan_mul: one value to repeat, forwards, "
+                         "expected")
     count = x.shape[0] if n is None else n
     if x.device.type == "cpu":
-        return _scan_mul_plain(x, exclusive, init, n)
+        return _scan_mul_plain(x, exclusive, init, n, reverse)
     if count == 0:
         return torch.empty((0, 4), dtype=torch.int64, device=x.device)
     kernels.LAUNCHES["fr_scan_mul"] += 1
-    return _scan_mul_launch(x, exclusive, init, n)
+    return _scan_mul_launch(x, exclusive, init, n, reverse)
 
 
-def _scan_mul_launch(x, exclusive: bool, init: int, n):
-    count = x.shape[0] if n is None else n
-    return _scan_levels(x, 0 if n is not None else 1, count, exclusive,
-                        init, kernels.stream_ptr(x.device))
+def _pow_split(e: int) -> tuple:
+    """(L, hi_n) of the repeated scan's tables over exponents below e: e
+    = hi 2^L + lo with L about half of e's bits."""
+    lo_bits = (max(1, e - 1).bit_length() + 1) // 2
+    return lo_bits, -(-e >> lo_bits)
+
+
+def _scan_mul_launch(x, exclusive: bool, init: int, n, reverse: bool):
+    """A vector: one look-back launch (its status words zeroed by the
+    launcher).  One value repeated: its two tables, then a product of
+    theirs a value."""
+    dev = x.device
+    stream = kernels.stream_ptr(dev)
+    iw = _words_arg([_mont(init)])                   # alive for the call
+    if n is None:
+        m = x.shape[0]
+        out = torch.empty((m, 4), dtype=torch.int64, device=dev)
+        status = torch.empty(_lb_status_words(1, -(-m // _lb_tile(1))) // 2,
+                             dtype=torch.int64, device=dev)
+        _launch("fr_scan_lookback_launch", x.data_ptr(), m,
+                ctypes.addressof(iw), int(not reverse), int(exclusive),
+                status.data_ptr(), 8 * status.numel(), out.data_ptr(),
+                stream)
+        return out
+    off = 0 if exclusive else 1
+    lo_bits, hi_n = _pow_split(n + off)
+    lo = torch.empty((1 << lo_bits, 4), dtype=torch.int64, device=dev)
+    hi = torch.empty((hi_n, 4), dtype=torch.int64, device=dev)
+    _launch("fr_pow_tables_launch", x.data_ptr(), ctypes.addressof(iw),
+            lo_bits, hi_n, lo.data_ptr(), hi.data_ptr(), stream)
+    out = torch.empty((n, 4), dtype=torch.int64, device=dev)
+    _launch("fr_pow_values_launch", lo.data_ptr(), hi.data_ptr(), lo_bits,
+            off, n, out.data_ptr(), stream)
+    return out
 
 
 def _lb_shape(k: int):
@@ -436,9 +499,9 @@ def div_binomial(p: torch.Tensor, k: int, c: int, exact: bool = False):
 
 
 def _div_binomial_launch(p: torch.Tensor, k: int, c: int):
-    """k <= LIN_MAX_K: one div_lookback launch over u = p[k:] (its status
-    scratch zeroed here), r on the host from q's and p's first k values;
-    else one div_chain launch, r on the card."""
+    """k <= LIN_MAX_K: one look-back launch over u = p[k:] (its status
+    words zeroed by the launcher), r on the host from q's and p's first k
+    values; else one div_chain launch, r on the card."""
     n, dev = p.shape[0], p.device
     m = n - k
     stream = kernels.stream_ptr(dev)
@@ -447,7 +510,7 @@ def _div_binomial_launch(p: torch.Tensor, k: int, c: int):
         if m > 0:
             q = torch.empty((m, 4), dtype=torch.int64, device=dev)
             tiles = -(-m // _lb_tile(k))
-            status = torch.zeros(_lb_status_words(k, tiles) // 2,
+            status = torch.empty(_lb_status_words(k, tiles) // 2,
                                  dtype=torch.int64, device=dev)
             pw = _words_arg(_lb_powers(k, c))        # alive for the call
             _launch("fr_div_lookback_launch", p[k:].data_ptr(), m, k, one,

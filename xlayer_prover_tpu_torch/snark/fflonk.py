@@ -571,15 +571,14 @@ def prove(pk: FflonkProvingKey, arr: plonk.PlonkArrays, publics: List[int],
                                             s3c], [beta, gamma], w)
     del a_col, b_col, c_col
     pnum = fr_poly.scan_mul(num[:n - 1].contiguous())
-    # suffix products prod_{i < j <= n - 2} den_j, by a scan of the reverse
-    sden = torch.flip(fr_poly.scan_mul(
-        torch.flip(den[:n - 1], [0]).contiguous(), exclusive=True), [0])
+    # suffix products prod_{i < j <= n - 2} den_j
+    sden = fr_poly.scan_mul(den[:n - 1], exclusive=True, reverse=True)
     total = from_words(sden[:1])[0] * from_words(den[:1])[0] % R
     del num, den
     if total == 0:
         raise ValueError("a zero permutation denominator")
     z_col = torch.cat([_words([1], dev), fr_poly.pointwise(
-        "mul", [pnum, sden.contiguous()], [pow(total, R - 2, R)])])
+        "mul", [pnum, sden], [pow(total, R - 2, R)])])
     del pnum, sden
     clock.lap("pointwise_s")
     z_p = _blind(ntt_fr.ntt(z_col, inverse=True),
