@@ -20,7 +20,11 @@
                                      # 2^18 under 16 GiB and at 2^20;
                                      # after phase 8, phase 13: the
                                      # devnet root's final circuit under
-                                     # fflonk
+                                     # fflonk; beside phase 12 (c),
+                                     # phase 14: a 2^18-leaf hashdb64
+                                     # state written, reopened and
+                                     # consolidated by --run-services
+    python3 chip_smoke.py --state    # phase 14 alone (the kernels built)
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build the CUDA kernels from
@@ -213,6 +217,29 @@ Phases (any failure exits non-zero and prints no result line):
      fr_ntt at 2^26 and 2^27: the round trip, and 8
      positions of the forward transform equal to fr_eval's values there
      and to the host's sums for a 3-term input.
+ 14. the state backends, in a process of its own (``chip_smoke.py
+     --state``) started beside phase 12 (c)'s host execution and joined
+     after it (its failure fails the script), on a fresh build/state/:
+     (a) 2^18 seeded key-values (``state_case``) through
+     ``HashDB64.write_tree`` into its paged files, then 1,024 sets
+     (deletes among them) and ``consolidate``, launches counted from 0:
+     each consolidation's tree hashed a level at a time by
+     poseidon_permute (``state/smt64_hash.py``); (b) ``main.py -c
+     build/state/services64.json --run-services`` with hashDB64 as a
+     process: GetLatestStateRoot from the reopened file, Gets of 256
+     sampled keys, 256 Set calls and ConsolidateState, which rehashes the
+     whole state in that process on the card, Gets at the new root,
+     SIGINT -> 0; (c) a process with databaseURL a sqlite file under
+     build/state/ and loadDBToMemCache: devnet batch 0's input nodes and a
+     seeded bytecode loaded (LoadDB, LoadProgramDB), a Set and its Flush,
+     reads, SIGINT -> 0; restarted warm from the file, the same reads.
+     Every root, read and flush id equals tests/data/state64_2e18.json
+     (the JAX package's, ``tools/torch_proof_fixtures.py state64_2e18``);
+     poseidon_permute held bit for bit against its plain version and
+     timed at the path's widest launch (2^18 states: K1's ``more_shapes``
+     row).  The seconds of each step, the files' bytes, the launches, the
+     host peak RSS and the card print as the ``state`` line; K1's row
+     takes its ``launches`` from this path.
 Phase 2 also holds the two Poseidon-BN254 kernels against their plain
 versions (and prints how many warps of each an SM holds):
 poseidon_bn254_permute at every width t = 2..17 on 3 states fewer and 5
@@ -258,8 +285,9 @@ cascade, the main path that launches every kernel, 0 included, and for
 fflonk's four kernels the count on the ``fflonk`` path;
 ``launches_by_path`` has every path's, the cascade's batch, recursion and
 final parts, ``chains_2e18``, phase 10's, ``entry_2e16``, phase 11's (c),
-``stream_2e18`` and ``chains_2e20``, phase 12's (b) and (c), and
-``fflonk``, phase 13's (c))
+``stream_2e18`` and ``chains_2e20``, phase 12's (b) and (c),
+``fflonk``, phase 13's (c), and ``state``, phase 14's (a); poseidon_permute's
+``launches`` are the ``state`` path's)
 and ends with
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -315,7 +343,8 @@ PATH_KERNELS = {"binary_sm_2e20": GL_PATH_KERNELS,
                 "stream_2e18": GL_PATH_KERNELS,
                 "chains_2e20": GL_PATH_KERNELS,
                 "fflonk": (*FFLONK_KERNELS, "fr_ntt", "fr_ntt_twiddles",
-                           "bn254_msm_g1", "bn254_fixed_base_g1")}
+                           "bn254_msm_g1", "bn254_fixed_base_g1"),
+                "state": ("poseidon_permute",)}
 # the cascade's parts (``cascade_groups``): each stage of a part must
 # launch these kernels
 STAGE_KERNELS = {"cascade_batches": GL_PATH_KERNELS,
@@ -609,6 +638,7 @@ def phase_kernels(torch, rng, n_ext_half_cols: int):
         "more_shapes": [],
         "source": "xlayer_prover_tpu_torch/csrc/poseidon_gl.cu",
         "replaces": "xlayer_prover_tpu/ops/pallas_poseidon.py:209",
+        "launches_path": "state",
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bytes": 192 * n, "ops": poseidon_mul32() * n, "shape": [n, 12],
         "plain_shape": [n, 12]})
@@ -3368,6 +3398,489 @@ def phase_fflonk(torch, r1cs, witness) -> tuple[dict, dict, int, list]:
     return launches, report, vk.n, wrap_calls
 
 
+# -- phase 14: the state backends ------------------------------------------
+
+STATE_DIR = os.path.join(REPO, "build", "state")
+# the JAX package's roots and reads of the phase's seeded operations
+# (tools/torch_proof_fixtures.py state64_2e18)
+STATE_FIXTURE = os.path.join(REPO, "tests", "data", "state64_2e18.json")
+STATE_SEED = 20261019
+STATE_KEYS = 1 << 18               # the state's leaves (cut: see PERF.md)
+STATE_BATCH = 1024                 # sets of the in-process consolidation
+STATE_RPC_SETS = 256               # Set calls before ConsolidateState
+STATE_READS = 256                  # sampled Gets
+STATE_S = 600.0                    # a services process's start or answer
+STATE_CHILD_S = 1200.0             # the phase's child process, at most
+ZERO4 = (0, 0, 0, 0)
+# the HashDB RPCs the phase calls: name -> (request class, response
+# class, the service method that answers it)
+STATE_RPCS = {"GetLatestStateRoot": ("Empty", "GetLatestStateRootResponse",
+                                     "get_latest_state_root"),
+              "Get": ("GetRequest", "GetResponse", "get"),
+              "Set": ("SetRequest", "SetResponse", "set"),
+              "GetProgram": ("GetProgramRequest", "GetProgramResponse",
+                             "get_program"),
+              "LoadDB": ("LoadDBRequest", "Empty", "load_db"),
+              "LoadProgramDB": ("LoadProgramDBRequest", "Empty",
+                                "load_program_db"),
+              "Flush": ("FlushRequest", "FlushResponse", "flush"),
+              "GetFlushStatus": ("Empty", "GetFlushStatusResponse",
+                                 "get_flush_status"),
+              "ConsolidateState": ("ConsolidateStateRequest",
+                                   "ConsolidateStateResponse",
+                                   "consolidate_state")}
+
+
+def state_case(n_keys: int = STATE_KEYS, seed: int = STATE_SEED) -> dict:
+    """Phase 14's seeded operations (numpy alone): `n_keys` keys (four
+    limbs below p, as Poseidon outputs) with 256-bit values for
+    write_tree; the consolidation's batch (STATE_BATCH sets: 3/4 updates,
+    1/8 deletes, 1/8 new keys); the services' Set batch (the same mix);
+    the sampled reads (first keys, the batch's new keys, absent keys)."""
+    import numpy as np
+
+    p = (1 << 64) - (1 << 32) + 1
+    rng = np.random.default_rng(seed)
+
+    def fresh(n):
+        rows = rng.integers(0, p, (n, 4), dtype=np.uint64).tolist()
+        raw = rng.bytes(32 * n)
+        return ([tuple(r) for r in rows],
+                [int.from_bytes(raw[32 * i:32 * i + 32], "little") | 1
+                 for i in range(n)])
+
+    keys, values = fresh(n_keys)
+
+    def batch(size):
+        old = rng.choice(n_keys, size=size - size // 8, replace=False)
+        out = {keys[i]: 0 if j % 7 == 0 else values[i] ^ (j + 1)
+               for j, i in enumerate(old.tolist())}
+        new_keys, new_values = fresh(size // 8)
+        out.update(zip(new_keys, new_values))
+        return out, new_keys
+
+    first, new = batch(min(STATE_BATCH, n_keys // 4))
+    rpc, _new = batch(min(STATE_RPC_SETS, n_keys // 8))
+    n_reads = min(STATE_READS, n_keys // 4)
+    new = new[:n_reads // 16]
+    reads = keys[:n_reads - 2 * len(new)] + new + fresh(len(new))[0]
+    return {"keys": keys, "values": values, "batch": first,
+            "rpc_batch": rpc, "reads": reads}
+
+
+def state64_script(call, case: dict) -> dict:
+    """The HashDB64 services process's RPCs (``call(name, request)`` ->
+    response): GetLatestStateRoot; a Get of each sampled key at that
+    root; the Set batch (batch "rpc"), each Set from the root the last
+    one returned; ConsolidateState of the last virtual root; Gets of 16
+    sampled keys at the consolidated root.  -> roots and values (hex)"""
+    from google.protobuf import empty_pb2
+
+    from xlayer_prover_tpu_torch.services import hashdb_service as hs
+    from xlayer_prover_tpu_torch.services.gen import hashdb_pb2 as pb
+
+    ok = pb.ResultCode.CODE_SUCCESS
+    out, marks = {}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        out[name] = now - marks[0]
+        marks[0] = now
+
+    def gets(root, keys):
+        values = []
+        for key in keys:
+            req = pb.GetRequest()
+            hs._set_fea(req.root, root)
+            hs._set_fea(req.key, key)
+            resp = call("Get", req)
+            _require(resp.result.code == ok, "Get answered")
+            values.append(resp.value)
+        return values
+
+    resp = call("GetLatestStateRoot", empty_pb2.Empty())
+    latest = hs._fea(resp.latest_root)
+    out["latest_root"] = list(latest)
+    out["reads"] = gets(latest, case["reads"])
+    lap("gets_s")
+    root = latest
+    for key, value in case["rpc_batch"].items():
+        req = pb.SetRequest(batch_uuid="rpc", value=f"{value:x}")
+        hs._set_fea(req.old_root, root)
+        hs._set_fea(req.key, key)
+        resp = call("Set", req)
+        _require(resp.result.code == ok, "Set answered")
+        root = hs._fea(resp.new_root)
+    out["virtual_root"] = list(root)
+    lap("sets_s")
+    req = pb.ConsolidateStateRequest()
+    hs._set_fea(req.virtual_state_root, root)
+    resp = call("ConsolidateState", req)
+    _require(resp.result.code == ok, "ConsolidateState answered")
+    out["consolidated_root"] = list(hs._fea(resp.consolidated_state_root))
+    lap("consolidate_s")
+    out["reads_after"] = gets(tuple(out["consolidated_root"]),
+                              case["reads"][:16])
+    return out
+
+
+def state_sqlite_case() -> dict:
+    """The sqlite processes' data: devnet batch 0's input nodes (its
+    ``db``; its ``contractsBytecode`` is empty) and one seeded bytecode
+    for LoadProgramDB; the pre-state root; the keys read (the balance and
+    nonce of both devnet accounts, an absent key); a new balance for
+    account 2."""
+    import random
+
+    from xlayer_prover_tpu_torch.state import keys as smt_keys
+    from xlayer_prover_tpu_torch.utils import devnet
+
+    inp = devnet.build_devnet_inputs(None, 1)[0]
+    doc = devnet.input_json(inp)
+    accounts = [devnet.address_of(devnet.DEVNET_PRIV1),
+                devnet.address_of(devnet.DEVNET_PRIV2)]
+    rng = random.Random(STATE_SEED)
+    code = {f"{rng.getrandbits(250):064x}": rng.randbytes(600)}
+    code.update({k: bytes.fromhex(v.removeprefix("0x"))
+                 for k, v in doc["contractsBytecode"].items()})
+    root = inp.old_state_root
+    return {"db": doc["db"], "code": code,
+            "root": tuple((root >> (64 * j)) & ((1 << 64) - 1)
+                          for j in range(4)),
+            "keys": [f(a) for a in accounts for f in (smt_keys.balance_key,
+                                                      smt_keys.nonce_key)]
+            + [smt_keys.balance_key(0xDEAD)],
+            "set": (smt_keys.balance_key(accounts[1]), 7)}
+
+
+def state_sqlite_script(call, case: dict, new_root=None) -> dict:
+    """The sqlite process's RPCs.  Without `new_root` (the first
+    process): LoadDB of the nodes, LoadProgramDB of the bytecode, a Set
+    of account 2's balance from the pre-state root in batch "sql" (its
+    root is the new root) and its Flush (the consolidation seals the
+    loaded nodes with the batch's), GetFlushStatus.  Then, in either
+    process: GetLatestStateRoot, a Get of each key at the pre-state and
+    the new root, a GetProgram of each bytecode.  -> the answers, decoded"""
+    from google.protobuf import empty_pb2
+
+    from xlayer_prover_tpu_torch.services import hashdb_service as hs
+    from xlayer_prover_tpu_torch.services.gen import hashdb_pb2 as pb
+
+    out = {}
+    if new_root is None:
+        req = pb.LoadDBRequest(persistent=True)
+        for k, limbs in case["db"].items():
+            req.input_db[k].fe.extend(int(x, 16) for x in limbs)
+        call("LoadDB", req)
+        req = pb.LoadProgramDBRequest(persistent=True)
+        for k, data in case["code"].items():
+            req.input_program_db[k] = data
+        call("LoadProgramDB", req)
+        key, value = case["set"]
+        req = pb.SetRequest(batch_uuid="sql", value=f"{value:x}")
+        hs._set_fea(req.old_root, case["root"])
+        hs._set_fea(req.key, key)
+        resp = call("Set", req)
+        _require(resp.result.code == pb.ResultCode.CODE_SUCCESS,
+                 "Set answered over the loaded nodes")
+        new_root = hs._fea(resp.new_root)
+        out["new_root"] = list(new_root)
+        resp = call("Flush", pb.FlushRequest(batch_uuid="sql"))
+        out["flush"] = [resp.flush_id, resp.stored_flush_id]
+        resp = call("GetFlushStatus", empty_pb2.Empty())
+        out["flush_status"] = [resp.stored_flush_id, resp.last_flush_id]
+    resp = call("GetLatestStateRoot", empty_pb2.Empty())
+    out["latest_root"] = list(hs._fea(resp.latest_root))
+    out["reads"] = {}
+    for name, root in (("pre", case["root"]), ("new", new_root)):
+        values = []
+        for key in case["keys"]:
+            req = pb.GetRequest()
+            hs._set_fea(req.root, root)
+            hs._set_fea(req.key, key)
+            resp = call("Get", req)
+            values.append([resp.result.code, resp.value])
+        out["reads"][name] = values
+    out["programs"] = {}
+    for k in case["code"]:
+        req = pb.GetProgramRequest()
+        v = int(k, 16)
+        hs._set_fea(req.key, [(v >> (64 * j)) & ((1 << 64) - 1)
+                              for j in range(4)])
+        resp = call("GetProgram", req)
+        out["programs"][k] = [resp.result.code, resp.data.hex()]
+    return out
+
+
+def _grpc_caller(port: int):
+    """(call(name, request) over loopback gRPC, its channel)"""
+    import grpc
+
+    from google.protobuf import empty_pb2
+
+    from xlayer_prover_tpu_torch.services import hashdb_service as hs
+    from xlayer_prover_tpu_torch.services.gen import hashdb_pb2 as pb
+
+    channel = grpc.insecure_channel(f"127.0.0.1:{port}")
+    grpc.channel_ready_future(channel).result(timeout=STATE_S)
+    classes = {name: [getattr(empty_pb2 if c == "Empty" else pb, c)
+                      for c in rpc[:2]] for name, rpc in STATE_RPCS.items()}
+
+    def call(name, req):
+        req_cls, resp_cls = classes[name]
+        return channel.unary_unary(
+            f"/{hs.SERVICE}/{name}",
+            request_serializer=req_cls.SerializeToString,
+            response_deserializer=resp_cls.FromString)(req, timeout=STATE_S)
+    return call, channel
+
+
+@contextlib.contextmanager
+def _services_process(out_dir: str, name: str, config: dict, device: str):
+    """``main.py -c <out_dir>/<name>.json --run-services --device`` as a
+    process, its log in <out_dir>/<name>.log; -> (call, report) once its
+    HashDB service answers; then SIGINT, and it must exit with 0."""
+    import signal
+    import subprocess
+
+    port = _free_port()
+    config = dict(config, runHashDBServer=True, hashDBServerPort=port)
+    cfg_path = os.path.join(out_dir, f"{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f, indent=1)
+    log = open(os.path.join(out_dir, f"{name}.log"), "w")
+    report = {}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(_main_cmd("-c", cfg_path, "--run-services",
+                                      "--device", device),
+                            cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    channel = None
+    try:
+        call, channel = _grpc_caller(port)
+        report["start_s"] = time.perf_counter() - t0
+        yield call, report
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=STATE_S)
+        report["stop_s"] = time.perf_counter() - t1
+        _require(rc == 0, f"{name}: --run-services exited with 0 on SIGINT "
+                 f"(rc {rc})")
+    finally:
+        if channel is not None:
+            channel.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _file_bytes(path: str) -> dict:
+    return {s: os.path.getsize(path + s)
+            for s in (".blob", ".blob.wm", ".kv", ".kv.wm")}
+
+
+def phase_state(torch, want: dict = None, device: str = "cuda",
+                out_dir: str = STATE_DIR) -> tuple[dict, dict, list]:
+    """Phase 14, the state backends (``state/hashdb64.py`` over its paged
+    files, its level hasher ``state/smt64_hash.py`` on the card;
+    ``main.py --run-services`` over it and over sqlite), on a fresh
+    `out_dir` (build/state/): (a) in this process, launches counted from
+    0: ``HashDB64.write_tree`` of the seeded state (``state_case``) into
+    the file, then the batch's sets and ``consolidate``; (b) the HashDB64
+    services process reopens the file: GetLatestStateRoot, the sampled
+    Gets, the Set batch and ConsolidateState, which rehashes the whole
+    state in that process on `device`, Gets at the new root; SIGINT ->
+    0; (c) a process over the sqlite file ``nodes.sqlite`` with
+    loadDBToMemCache: devnet batch 0's nodes and a bytecode loaded, a Set
+    and its Flush, the reads; SIGINT (its cached stack stores what was
+    flushed) -> 0; then a second process, warm from the file, answers
+    the same reads.  Every root, read and flush id equals the JAX
+    package's (`want`, default tests/data/state64_2e18.json).  -> (the
+    launches of (a), the "state" line's report, the leaves' values)"""
+    import re
+    import shutil
+
+    from xlayer_prover_tpu_torch import kernels
+    from xlayer_prover_tpu_torch.state.hashdb64 import HashDB64
+
+    if want is None:
+        with open(STATE_FIXTURE) as f:
+            want = json.load(f)
+    n_keys = want["keys"]
+    _require(want["seed"] == STATE_SEED, "the fixture's seed is the phase's")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    t_all = t0 = time.perf_counter()
+    # a child's peak starts at its parent's resident set at the fork (the
+    # kernel keeps it across exec): the peak is the phase's own only where
+    # it passes this
+    report = {"keys": n_keys, "host_peak_rss_at_start_bytes":
+              _host_peak_rss()}
+    case = state_case(n_keys)
+    report["case_s"] = time.perf_counter() - t0
+    path = os.path.join(out_dir, "state64")
+
+    # (a) write_tree and a consolidation in this process
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    h = HashDB64(path=path, device=device)
+    root = h.write_tree(ZERO4, zip(case["keys"], case["values"]))
+    report["write_tree_s"] = time.perf_counter() - t0
+    _require(list(root) == want["write_tree_root"], "write_tree's root is "
+             "the JAX package's")
+    report["bytes_after_write_tree"] = _file_bytes(path)
+    t0 = time.perf_counter()
+    vroot = root
+    for key, value in case["batch"].items():
+        vroot = h.set("c1", vroot, key, value).new_root
+    c1 = h.consolidate("c1")
+    report["consolidate_s"] = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    _require(list(c1) == want["consolidated"][0], "the consolidation's "
+             "root is the JAX package's")
+    t0 = time.perf_counter()
+    reads = [f"{h.get(None, c1, k).value:064x}" for k in case["reads"]]
+    report["reads_s"] = time.perf_counter() - t0
+    _require(reads == want["reads"], "the sampled reads are the JAX "
+             "package's")
+    h.close()
+    report["bytes_after_consolidate"] = _file_bytes(path)
+    report["launches"] = launches
+    print(f"state: write_tree of {n_keys} leaves {report['write_tree_s']:.2f}"
+          f" s, {len(case['batch'])} sets consolidated "
+          f"{report['consolidate_s']:.2f} s, roots equal to the JAX "
+          f"package's, {launches['poseidon_permute']} poseidon_permute "
+          "launches", flush=True)
+
+    # (b) the HashDB64 services process over the reopened file
+    config = {"hashDB64": True, "hashDBFolder": out_dir,
+              "hashDBFileName": "state64"}
+    with _services_process(out_dir, "services64", config, device) \
+            as (call, rpc):
+        got = state64_script(call, case)
+    rpc.update({k: got.pop(k) for k in ("gets_s", "sets_s",
+                                        "consolidate_s")})
+    _require(got["latest_root"] == want["consolidated"][0],
+             "GetLatestStateRoot answers the reopened file's root")
+    _require(got["reads"] == want["reads"], "the reopened file answers the "
+             "sampled Gets as the JAX package")
+    _require(got["consolidated_root"] == want["consolidated"][1],
+             "ConsolidateState's root is the JAX package's")
+    _require(got["reads_after"] == want["reads_after"], "the Gets at the "
+             "consolidated root are the JAX package's")
+    rpc["bytes"] = _file_bytes(path)
+    report["services64"] = rpc
+
+    # (c) the sqlite processes: load, flush, stop; restart warm, read
+    sql = state_sqlite_case()
+    config = {"databaseURL": os.path.join(out_dir, "nodes.sqlite"),
+              "loadDBToMemCache": True}
+    answers = {}
+    for name in ("first", "warm"):
+        with _services_process(out_dir, f"sqlite_{name}", config, device) \
+                as (call, rpc):
+            t0 = time.perf_counter()
+            answers[name] = state_sqlite_script(
+                call, sql, answers.get("first", {}).get("new_root"))
+            rpc["script_s"] = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"sqlite_{name}.log")) as f:
+            warmed = re.findall(r"warmed (\d+) nodes", f.read())
+        answers[name]["warmed"] = int(warmed[-1]) if warmed else None
+        report[f"sqlite_{name}"] = rpc
+    _require(answers == want["sqlite"], "the sqlite processes answer as the "
+             "JAX package's service over the same file")
+    _require(answers["warm"]["reads"] == answers["first"]["reads"]
+             and answers["warm"]["programs"] == answers["first"]["programs"],
+             "the warm restart answers the first process's reads")
+    report["sqlite_bytes"] = os.path.getsize(config["databaseURL"])
+    report["warmed"] = answers["warm"]["warmed"]
+    report["host_peak_rss_bytes"] = _host_peak_rss()
+    report["total_s"] = time.perf_counter() - t_all
+    if device == "cuda":
+        from xlayer_prover_tpu_torch import device as devices
+        report["card"] = devices.smi("name,power.limit")
+    return launches, report, case["values"]
+
+
+def phase_state_kernel(torch, values: list) -> dict:
+    """poseidon_permute at the state path's widest launch, the value
+    hashes of phase 14's leaves ((n, 12): each value's eight 32-bit limbs
+    and four zeros), bit-equal to its plain version and timed.  -> the
+    K1 row's shape on the state path"""
+    import numpy as np
+
+    from xlayer_prover_tpu_torch.fields import gl
+    from xlayer_prover_tpu_torch.ops import poseidon_gl
+
+    n = len(values)
+    raw = b"".join(v.to_bytes(32, "little") for v in values)
+    states = np.zeros((n, 12), dtype=np.uint64)
+    states[:, :8] = np.frombuffer(raw, dtype="<u4").reshape(n, 8)
+    t = gl.from_u64_np(states, torch.device("cuda"))
+    got = poseidon_gl.permute(t)
+    ref, plain_ms = _timed(torch, lambda: poseidon_gl._permute_plain(t))
+    err = _max_abs_err(got, ref)
+    _require(err == 0, "poseidon_permute equals its plain version at the "
+             "state path's shape")
+    ms = _cuda_ms(lambda: poseidon_gl.permute(t), 10)
+    bound, by = _bound_ms({"bytes": 192 * n, "ops": poseidon_mul32() * n},
+                          int_mul_rate(torch))
+    print(f"kernel poseidon_permute at [{n}, 12] (the state path's value "
+          f"hashes): {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+          f"{bound:.4f} ms by {by})", flush=True)
+    return {"shape": [n, 12], "path": "state", "ms": ms,
+            "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound,
+            "bound_by": by}
+
+
+def state_child_main() -> int:
+    """``chip_smoke.py --state``: phase 14 alone in this process (the
+    kernels already built), then the kernel's check at its widest launch.
+    Prints the "state" line and, last, {"launches": ..., "kernel": ...}."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --state: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, REPO)
+    launches, report, values = phase_state(torch)
+    kernel = phase_state_kernel(torch, values)
+    print("state " + json.dumps(report), flush=True)
+    print(json.dumps({"launches": launches, "kernel": kernel}), flush=True)
+    return 0
+
+
+def start_state_child():
+    """Phase 14 as a child process (``--state``) beside phase 12 (c)'s
+    host execution; its output in build/state_phase.out and .err.
+    -> (the process, its output's path)"""
+    import subprocess
+
+    out = os.path.join(REPO, "build", "state_phase.out")
+    with open(out, "w") as fo, open(out[:-4] + ".err", "w") as fe:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                 "--state"], cwd=REPO, stdout=fo,
+                                stderr=fe)
+    return proc, out
+
+
+def join_state_child(proc, out: str) -> tuple[dict, dict]:
+    """Wait for phase 14's child; relay its lines; it must exit with 0.
+    -> (its launches, the K1 row's state shape)"""
+    rc = proc.wait(timeout=STATE_CHILD_S)
+    with open(out) as f:
+        lines = f.read().strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    if rc != 0:
+        with open(out[:-4] + ".err") as f:
+            print(f.read()[-8000:], file=sys.stderr)
+    _require(rc == 0, f"phase 14's process exited with 0 (rc {rc})")
+    last = json.loads(lines[-1])
+    return last["launches"], last["kernel"]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3460,9 +3973,19 @@ def main() -> int:
     by_path["stream_2e18"] = phase_stream_2e18(torch, chains)
     del chains
     mark("12ab_stream_2e18")
-    by_path["chains_2e20"] = phase_stream_2e20(torch, prep)
-    del prep
-    mark("12c_chains_2e20")
+    # phase 14 runs in a process of its own beside 12 (c)'s execution
+    state_proc, state_out = start_state_child()
+    try:
+        by_path["chains_2e20"] = phase_stream_2e20(torch, prep)
+        del prep
+        mark("12c_chains_2e20")
+        by_path["state"], state_shape = join_state_child(state_proc,
+                                                         state_out)
+    finally:
+        if state_proc.poll() is None:
+            state_proc.kill()
+            state_proc.wait()
+    mark("14_state_join")
     for path, launches in by_path.items():
         for name in PATH_KERNELS.get(path, STAGE_KERNELS.get(path)):
             _require(launches.get(name, 0) > 0, f"{name} launched on the "
@@ -3475,6 +3998,8 @@ def main() -> int:
         r["at_final_shape"] = at_final.get(r["name"])
         if r["name"] == "poseidon_linear_hash":
             r["more_shapes"] += capacity_shapes
+        if r["name"] == "poseidon_permute":
+            r["more_shapes"].append(state_shape)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "plain_shape", "more_shapes", "launches_by_path",
@@ -3491,4 +4016,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(state_child_main() if sys.argv[1:] == ["--state"] else main())

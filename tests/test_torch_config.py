@@ -5,11 +5,13 @@ The same reference-style config file (camelCase keys, aliases, legacy
 spellings, unknown keys) loads into equal Configs
 (``dataclasses.asdict``); every environment override lands on the same
 field with the same type; ``check()`` passes and refuses the same
-configs; ``print()`` logs the same lines.  The port's entry point refuses
-the keys that select a state backend of ROADMAP item 17."""
+configs; ``print()`` logs the same lines.  The port's entry point builds
+the state backend that each key of ROADMAP item 17 selects, as the JAX
+main.py does."""
 
 import dataclasses
 import json
+import os
 
 import pytest
 
@@ -118,23 +120,147 @@ def test_print_equal(tmp_path, monkeypatch):
     assert "config.prover_name = tpu-prover-7" in logged["port"]
 
 
-@pytest.mark.parametrize("key,value,attr", [
-    ("hashDB64", True, "hashdb64"),
-    ("databaseURL", "postgresql://db/state", "database_url"),
-    ("databaseURL", "/var/lib/state.sqlite", "database_url"),
-    ("dbCacheSynchURL", "prover-a:50061", "db_cache_synch_url"),
-    ("loadDBToMemCache", True, "load_db_to_mem_cache")])
-def test_unported_state_keys_refused(tmp_path, key, value, attr):
-    """Each key of ROADMAP item 17 loads as in the JAX package, and the
-    port's entry point refuses it with a ValueError naming the key, for
-    the HashDB server that would use it; the defaults pass."""
-    port, jax = loaded(tmp_path, {"runHashDBServer": True, key: value})
-    assert getattr(port, attr) == getattr(jax, attr) == value
-    with pytest.raises(ValueError, match=rf"^config {key}=.*ROADMAP item 17"):
-        pmain.refuse_unported_state(port)
-    with pytest.raises(ValueError, match=key):
-        pmain.cmd_run_services(port)
-    pmain.refuse_unported_state(pconfig.Config())
-    assert set(pmain.UNPORTED_STATE_KEYS) == {
-        "hashdb64", "database_url", "db_cache_synch_url",
-        "load_db_to_mem_cache"}
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sqlite_state(path: str) -> tuple:
+    """A sqlite node store holding a consolidated classic-SMT state and
+    its state-root sentinel (the JAX package writes it).  -> the root"""
+    from xlayer_prover_tpu.state.database import CachedDB, SqlDB
+    from xlayer_prover_tpu.state.hashdb import HashDB
+    db = CachedDB(SqlDB(path))
+    hdb = HashDB(db)
+    root = (0, 0, 0, 0)
+    for i in range(1, 9):
+        root = tuple(hdb.set("b", root, (i, 2 * i, 3, 4), 100 + i).new_root)
+    fid, _ = hdb.consolidate("b")
+    assert db.multi_write.wait_stored(fid, timeout=30)
+    db.multi_write.close()
+    return root
+
+
+def run_services(pkg_main, cfg, monkeypatch, **kw):
+    """`pkg_main`.cmd_run_services(cfg) until its first wait, which
+    raises KeyboardInterrupt (SIGINT) on the main thread.  -> (the
+    HashDBServiceImpls and CacheSynchThreads it made, its return code)"""
+    import importlib
+    import threading
+    import time
+
+    pkg = pkg_main.__name__.rsplit(".", 1)[0]
+    svc = importlib.import_module(f"{pkg}.services.hashdb_service")
+    dbm = importlib.import_module(f"{pkg}.state.database")
+    made = {"impl": [], "synch": []}
+
+    class Impl(svc.HashDBServiceImpl):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made["impl"].append(self)
+
+    class Synch(dbm.CacheSynchThread):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made["synch"].append(self)
+
+    sleep = time.sleep
+
+    def interrupted(seconds):
+        if threading.current_thread() is threading.main_thread():
+            raise KeyboardInterrupt
+        sleep(seconds)
+
+    monkeypatch.setattr(svc, "HashDBServiceImpl", Impl)
+    monkeypatch.setattr(dbm, "CacheSynchThread", Synch)
+    monkeypatch.setattr(time, "sleep", interrupted)
+    try:
+        rc = pkg_main.cmd_run_services(cfg, **kw)
+    finally:
+        monkeypatch.undo()
+    return made, rc
+
+
+def chain(backend) -> list:
+    """The type names down a backend's stack: the HashDB, then a
+    CachedDB under it and the CachedDB's store."""
+    names = [type(backend).__name__]
+    db = getattr(backend, "db", None)
+    if type(db).__name__ == "CachedDB":
+        names += ["CachedDB", type(db.backend).__name__]
+    return names
+
+
+STATE_CASES = [("hashDB64", True), ("databaseURL", "postgresql://db/state"),
+               ("databaseURL", "sqlite"), ("dbCacheSynchURL", "loopback"),
+               ("loadDBToMemCache", True)]
+
+
+@pytest.mark.parametrize("key,value", STATE_CASES,
+                         ids=[f"{k}-{v}" for k, v in STATE_CASES])
+def test_state_backends_built_as_the_jax_main(tmp_path, monkeypatch, key,
+                                              value):
+    """Each config key of the state backends (ROADMAP item 17) builds, in
+    the port's ``--run-services``, the backend that the JAX main.py
+    builds: HashDB64 on its file; PostgresDB, which fails on the missing
+    psycopg2 as in the JAX package; HashDB over CachedDB over SqlDB with
+    the configured cache sizes; the cache synch thread (to a loopback
+    port); the warm start, which caches the same nodes."""
+    from xlayer_prover_tpu import main as jmain
+    jax_sql = str(tmp_path / "jax.sqlite")
+    port_sql = str(tmp_path / "port.sqlite")
+    data = {"runHashDBServer": True, "hashDBServerPort": 0,
+            "dbMTCacheSize": 3, "dbProgramCacheSize": 2, key: value}
+    if key == "hashDB64":
+        data["hashDBFileName"] = "state64"
+    elif value != "postgresql://db/state":
+        data["databaseURL"] = "sqlite"
+    if key == "dbCacheSynchURL":
+        data[key] = f"127.0.0.1:{_free_port()}"
+    if key == "loadDBToMemCache":
+        root = sqlite_state(port_sql)
+        assert sqlite_state(jax_sql) == root
+    out = {}
+    for name, main_mod, sql, kw in (("port", pmain, port_sql,
+                                     {"device": "cpu"}),
+                                    ("jax", jmain, jax_sql, {})):
+        cfg_data = dict(data, hashDBFolder=str(tmp_path / f"h64_{name}"))
+        if cfg_data.get("databaseURL") == "sqlite":
+            cfg_data["databaseURL"] = sql
+        cfg = loaded(tmp_path, cfg_data)[0 if name == "port" else 1]
+        if value == "postgresql://db/state":
+            with pytest.raises(ImportError) as err:
+                run_services(main_mod, cfg, monkeypatch, **kw)
+            out[name] = (type(err.value), str(err.value))
+            continue
+        made, rc = run_services(main_mod, cfg, monkeypatch, **kw)
+        assert rc == 0
+        (impl,), synch = made["impl"], made["synch"]
+        backend = impl.hashdb
+        got = [chain(backend), len(synch)]
+        db = getattr(backend, "db", None)
+        if hasattr(db, "mt_cache"):
+            got += [db.mt_cache.max_bytes, db.program_cache.max_bytes,
+                    sorted(db.mt_cache._d)]
+        for t in synch:
+            assert t.db is db and not t._thread.is_alive()
+        if key == "hashDB64":
+            got.append(os.path.exists(os.path.join(
+                cfg.hashdb_folder, "state64.blob")))
+        out[name] = got
+    assert out["port"] == out["jax"]
+    expect = {"hashDB64": ["HashDB64"], "databaseURL": ["HashDB", "CachedDB",
+                                                        "SqlDB"]}
+    if value == "postgresql://db/state":
+        assert out["port"][0] is ModuleNotFoundError
+        assert "psycopg2" in out["port"][1]
+    elif key in expect:
+        assert out["port"][0] == expect[key]
+    if key == "dbCacheSynchURL":
+        assert out["port"][1] == 1
+    if key == "loadDBToMemCache":
+        assert root in out["port"][4] and len(out["port"][4]) > 8
+    if key == "hashDB64":
+        assert out["port"][-1] is True

@@ -9,8 +9,9 @@ from its seconds; the script generators write the same files; the
 executor client counts the answers without an error (the JAX client
 counts those with error 0, EXECUTOR_ERROR_UNSPECIFIED: ROADMAP queue 3);
 the
-state backends of ROADMAP item 17 and the self-tests of unported code are
-refused; ``chip_smoke.py`` phase 11's file mode and its ``--run-services``
+state backends of ROADMAP item 17 are served and their self-tests run
+the port's test modules, the self-test of unported code is refused;
+``chip_smoke.py`` phase 11's file mode and its ``--run-services``
 process run here on the CPU.  ``--gen-batch-proof`` and
 ``--prove-from-cmpols`` prove devnet batch 0 at 2^16 and are in the slow
 tier (over an hour on the CPU)."""
@@ -101,7 +102,7 @@ def test_mode_dispatch(tmp_path, monkeypatch, argv, cfg, command):
     assert chosen[PORT][0] == chosen[JAX][0] == command
     port_args, jax_args = chosen[PORT][1][1:], chosen[JAX][1][1:]
     if command in ("cmd_gen_batch_proof", "cmd_prove_from_cmpols",
-                   "cmd_prove_toy"):
+                   "cmd_prove_toy", "cmd_run_services"):
         assert port_args == (*jax_args, "cpu")
     else:
         assert port_args == jax_args
@@ -191,23 +192,82 @@ def test_script_generators_equal(tmp_path):
 
 @pytest.mark.parametrize("key,value", [
     ("hashDB64", True), ("databaseURL", "postgresql://db/state"),
-    ("databaseURL", "state.sqlite"), ("dbCacheSynchURL", "other:50061"),
+    ("databaseURL", "state.sqlite"), ("dbCacheSynchURL", "loopback"),
     ("loadDBToMemCache", True)])
-def test_run_services_refuses_unported_state(tmp_path, key, value):
-    """A config that selects a state backend of ROADMAP item 17 is refused
-    before any service starts, naming its key."""
+def test_run_services_serves_state_backends(tmp_path, monkeypatch, key,
+                                            value):
+    """``main.py --run-services --device cpu`` with a key of the state
+    backends (ROADMAP item 17): the HashDB service runs over the backend
+    the key selects and stops on SIGINT with 0 (the cached stack closed,
+    its flushed generations stored); a postgres DSN fails on the missing
+    driver as in the JAX package; hashDB64 hashes on the device asked
+    for, and without --device on the card, which is not here."""
+    from tests.test_torch_config import _free_port, run_services
+    if value == "state.sqlite":
+        value = str(tmp_path / value)
+    if value == "loopback":
+        value = f"127.0.0.1:{_free_port()}"
+    extra = {"databaseURL": str(tmp_path / "warm.sqlite")} \
+        if key in ("dbCacheSynchURL", "loadDBToMemCache") else {}
     path = config_file(tmp_path, "cfg", runHashDBServer=True,
-                       hashDBServerPort=0, **{key: value})
-    with pytest.raises(ValueError, match=rf"{key}=.*ROADMAP item 17"):
-        pmain.main(["-c", path, "--run-services"])
+                       hashDBServerPort=0, hashDBFolder=str(tmp_path / "h"),
+                       **extra, **{key: value})
+    seen = []
+    monkeypatch.setattr(pmain, "cmd_run_services",
+                        lambda cfg, device: seen.append((cfg, device)))
+    pmain.main(["-c", path, "--run-services", "--device", "cpu"])
+    pmain.main(["-c", path, "--run-services"])
+    monkeypatch.undo()
+    (cfg, device), (_cfg, default) = seen
+    assert (device, default) == ("cpu", "cuda")
+    if key == "databaseURL" and value.startswith("postgresql"):
+        with pytest.raises(ModuleNotFoundError, match="psycopg2"):
+            run_services(pmain, cfg, monkeypatch, device=device)
+        return
+    made, rc = run_services(pmain, cfg, monkeypatch, device=device)
+    backend = made["impl"][0].hashdb
+    assert rc == 0 and len(made["synch"]) == (key == "dbCacheSynchURL")
+    if key == "hashDB64":
+        assert type(backend).__name__ == "HashDB64"
+        assert backend.sm.smt.device.type == "cpu"
+        if not pmain_cuda():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                run_services(pmain, cfg, monkeypatch, device=default)
+    else:
+        assert type(backend.db).__name__ == "CachedDB"
+        assert not backend.db.multi_write._thread.is_alive()
 
 
-@pytest.mark.parametrize("flag", ["runDatabaseCacheTest", "runSMT64Test",
-                                  "runBlakeTest", "runPageManagerTest"])
+def pmain_cuda() -> bool:
+    import torch
+    return torch.cuda.is_available()
+
+
+@pytest.mark.parametrize("flag", ["runBlakeTest"])
 def test_self_tests_of_unported_code_refused(tmp_path, flag):
     path = config_file(tmp_path, "cfg", **{flag: True})
     with pytest.raises(ValueError, match="not ported"):
         pmain.main(["-c", path])
+
+
+@pytest.mark.parametrize("flag,target", [
+    ("runDatabaseCacheTest", "tests/test_torch_db_caches.py"),
+    ("runDatabasePerformanceTest", "tests/test_torch_db_caches.py"),
+    ("runPageManagerTest", "tests/test_torch_state64.py"),
+    ("runKeyValueTreeTest", "tests/test_torch_state64.py"),
+    ("runSMT64Test", "tests/test_torch_state64.py")])
+def test_self_tests_of_the_state_backends(tmp_path, monkeypatch, flag,
+                                          target):
+    """The self-tests of ROADMAP item 17's modules run the port's test
+    module of that module."""
+    import subprocess
+    calls = []
+    monkeypatch.setattr(subprocess, "call",
+                        lambda args, cwd: calls.append((args, cwd)) or 0)
+    path = config_file(tmp_path, "cfg", **{flag: True})
+    assert pmain.main(["-c", path]) == 0
+    (args, cwd), = calls
+    assert cwd == ROOT and args[args.index("not slow") + 1:] == [target]
 
 
 def test_self_tests_run_the_port_modules(tmp_path, monkeypatch):

@@ -33,6 +33,10 @@ The fflonk case (``FFLONK``): ``fflonk_seeded_n12`` writes
 ``tests/data/fflonk_seeded_n12.json``, the JAX package's fflonk keys (the
 verifying key, the proving key's parts by sha256) and proof of the port's
 ``plonk.seeded_r1cs`` circuit at n = 2^12 (~30 s).
+The state phase (``STATE64``): ``state64_2e18`` writes
+``tests/data/state64_2e18.json``, the JAX package's roots and reads of
+``chip_smoke.py`` phase 14's seeded 2^18-leaf state (``Smt64`` with the
+native Poseidon, ~1-2 min) and its sqlite service's answers.
 The devnet batch 0 proof (``devnet_batch0_n16_q4``) is the committed
 ``a7_state_devnet/batch_proof_0vdev0_nb16_q4.json``: it is read in place
 and never rewritten, and only ``jax_proof`` proves it again.
@@ -575,6 +579,84 @@ def read_fflonk() -> dict:
         return json.load(f)
 
 
+# chip_smoke.py phase 14's seeded state (chip_smoke.state_case) and its
+# sqlite processes, answered by the JAX package
+STATE64 = "state64_2e18"
+
+
+def state64_sqlite_jax(path: str) -> dict:
+    """The JAX HashDB service over ``CachedDB(SqlDB(path))`` as its main.py
+    builds it for databaseURL with loadDBToMemCache, taking phase 14's
+    sqlite script (``chip_smoke.state_sqlite_script``) in a first service
+    and then, over the same file, a second one warm from it; the JAX
+    main.py does not store at exit what was flushed, so each service's
+    sender is waited for.  -> the answers of both, decoded"""
+    import chip_smoke
+    from xlayer_prover_tpu.services.hashdb_service import HashDBServiceImpl
+    from xlayer_prover_tpu.state.database import (CachedDB, SqlDB,
+                                                  load_db_to_mem_cache)
+    from xlayer_prover_tpu.state.hashdb import HashDB
+    from xlayer_prover_tpu.utils.config import Config
+
+    cfg = Config()
+    case = chip_smoke.state_sqlite_case()
+    answers = {}
+    for name in ("first", "warm"):
+        db = CachedDB(backend=SqlDB(path),
+                      mt_cache_bytes=cfg.db_mt_cache_mb * (1 << 20),
+                      program_cache_bytes=cfg.db_program_cache_mb * (1 << 20))
+        impl = HashDBServiceImpl(HashDB(db))
+        warmed = load_db_to_mem_cache(
+            db, timeout_s=cfg.load_db_to_mem_timeout_us / 1e6)
+
+        def call(rpc, req):
+            return getattr(impl, chip_smoke.STATE_RPCS[rpc][2])(req, None)
+
+        answers[name] = chip_smoke.state_sqlite_script(
+            call, case, answers.get("first", {}).get("new_root"))
+        answers[name]["warmed"] = warmed
+        assert db.multi_write.wait_stored(
+            db.flush_status()["last_flush_id"], timeout=60)
+        db.multi_write.close()
+        db.backend._conn.close()
+    return answers
+
+
+def state64_fixture(n_keys: int = None) -> dict:
+    """The JAX package's roots and reads of chip_smoke.py phase 14's
+    seeded operations at `n_keys` leaves (default chip_smoke.STATE_KEYS):
+    Smt64.set_many of the whole state (write_tree's root), of the
+    consolidation's batch and of the services' Set batch (ConsolidateState's
+    root); the sampled Gets at the first consolidated root and 16 of them
+    at the second (values, 64 hex digits); the sqlite processes' answers
+    (``state64_sqlite_jax``).  Smt64 over an in-memory Database64: the KV
+    history, which holds no root, is left out."""
+    import tempfile
+
+    import chip_smoke
+    from xlayer_prover_tpu.state.hashdb64 import Database64, Smt64
+
+    n = n_keys or chip_smoke.STATE_KEYS
+    case = chip_smoke.state_case(n)
+    smt = Smt64(Database64())
+    root = smt.set_many((0, 0, 0, 0), dict(zip(case["keys"],
+                                               case["values"])))
+    first = smt.set_many(root, case["batch"])
+    reads = [f"{smt.get(first, k)[0]:064x}" for k in case["reads"]]
+    second = smt.set_many(first, case["rpc_batch"])
+    after = [f"{smt.get(second, k)[0]:064x}" for k in case["reads"][:16]]
+    with tempfile.TemporaryDirectory() as tmp:
+        sqlite = state64_sqlite_jax(os.path.join(tmp, "nodes.sqlite"))
+    return {"seed": chip_smoke.STATE_SEED, "keys": n,
+            "write_tree_root": list(root),
+            "consolidated": [list(first), list(second)], "reads": reads,
+            "reads_after": after, "sqlite": sqlite}
+
+
+def state64_jax() -> str:
+    return json.dumps(state64_fixture(), indent=1) + "\n"
+
+
 CASES = {"binary_sm_n10_q4": binary_sm_case,
          "composite_n11_q4": composite_case,
          "zkevm_mini_n13_q4": zkevm_mini_case,
@@ -590,7 +672,7 @@ PROOFS = {"recF_devnet_root_q4": recf_devnet_root_jax,
 # JSON files of the JAX package that are not proofs: name -> its text,
 # written as tests/data/<name>.json
 DIGESTS = {CHAINS: chains_fixture_jax, EXECUTOR: executor_devnet0_jax,
-           FFLONK: fflonk_seeded_jax}
+           FFLONK: fflonk_seeded_jax, STATE64: state64_jax}
 # Groth16 proofs of the JAX package: name -> (vk, proof, publics), written
 # as snarkjs files (SNARKJS_FILES) into tests/data/<name>/
 GROTH16 = {"g16_fib_bn128_r7": g16_fib_bn128_jax,

@@ -17,9 +17,10 @@ The port's own copy of ``xlayer_prover_tpu/main.py``, with the same modes
     client and the self-tests (the port's own test modules)
 
 One option is the port's own: ``--device`` (default ``cuda``) is where
-the proofs are made; ``--device cpu`` runs every kernel's plain PyTorch
-version on the CPU.  ``grpc`` and the generated ``_pb2`` modules are
-imported only where a gRPC path runs, so the file modes need neither.
+the proofs are made and the hashdb64 store hashes its consolidations;
+``--device cpu`` runs every kernel's plain PyTorch version on the CPU.
+``grpc`` and the generated ``_pb2`` modules are imported only where a
+gRPC path runs, so the file modes need neither.
 
 Usage: python3 -m xlayer_prover_tpu_torch.main [-c config.json] MODE...
 """
@@ -33,29 +34,6 @@ import time
 
 from .utils.config import Config
 from .utils.log import zklog
-
-# the config keys that select a state backend of ROADMAP item 17 (the
-# hashdb64 store, the cached / SQL / Postgres node stores, the boot-time
-# cache warm start, the cache synch thread), which the port does not have
-# -> (the config's own name, the value that asks for none of them)
-UNPORTED_STATE_KEYS = {"hashdb64": ("hashDB64", False),
-                       "database_url": ("databaseURL", "local"),
-                       "db_cache_synch_url": ("dbCacheSynchURL", ""),
-                       "load_db_to_mem_cache": ("loadDBToMemCache", False)}
-
-
-def refuse_unported_state(cfg: Config):
-    """Raise ValueError naming the first config key that selects a state
-    backend of ROADMAP item 17; the port neither ignores such a key nor
-    falls back to the in-memory store."""
-    for attr, (key, default) in UNPORTED_STATE_KEYS.items():
-        value = getattr(cfg, attr)
-        if value not in (default, None, ""):
-            raise ValueError(
-                f"config {key}={value!r} selects a state backend that is "
-                "not ported (ROADMAP item 17); the port's HashDB service "
-                f"keeps its state in memory: set {key} to {default!r}")
-
 
 def _load_rom(path: str | None):
     from .executor import rom_functions as rf
@@ -174,25 +152,89 @@ def cmd_prove_from_cmpols(cfg: Config, path: str, rom_path=None,
     return 0
 
 
-def cmd_run_services(cfg: Config) -> int:
+def state_backend(cfg: Config, device: str = "cuda"):
+    """The HashDB service's state backend as the JAX main.py builds it:
+    ``HashDB64`` on its paged file for hashDB64 (hashing on `device`), a
+    ``HashDB`` over ``CachedDB`` (LRU + associative caches, MultiWrite
+    write-behind) over ``PostgresDB`` for a postgres DSN or ``SqlDB`` for
+    any other databaseURL but "local" (reference main.cpp:404-440), else
+    None (the service's in-memory ``HashDB``)."""
+    import os
+
+    if cfg.hashdb64:
+        from .state.hashdb64 import HashDB64
+        os.makedirs(cfg.hashdb_folder, exist_ok=True)
+        return HashDB64(path=os.path.join(cfg.hashdb_folder,
+                                          cfg.hashdb_file_name),
+                        device=device)
+    if cfg.database_url and cfg.database_url != "local":
+        from .state.database import CachedDB, SqlDB
+        from .state.hashdb import HashDB
+        if cfg.database_url.startswith(("postgres://", "postgresql://")):
+            from .state.postgres import PostgresDB
+            sql = PostgresDB(dsn=cfg.database_url)
+        else:
+            sql = SqlDB(cfg.database_url)
+        return HashDB(db=CachedDB(
+            backend=sql,
+            mt_cache_bytes=cfg.db_mt_cache_mb * (1 << 20),
+            program_cache_bytes=cfg.db_program_cache_mb * (1 << 20)))
+    return None
+
+
+def start_state_services(cfg: Config, node_db) -> list:
+    """Under a cached node store: the boot-time warm start
+    (loadDBToMemCache, on a thread of its own with
+    loadDBToMemCacheInParallel) and the cache synch thread
+    (dbCacheSynchURL, reference database.cpp:96,1872-1966), as the JAX
+    main.py starts them.  -> the threads to stop"""
+    from .state.database import CacheSynchThread, load_db_to_mem_cache
+
+    threads = []
+    if cfg.hashdb64:
+        return threads
+    if cfg.load_db_to_mem_cache and hasattr(node_db, "read_state_root"):
+        timeout_s = cfg.load_db_to_mem_timeout_us / 1e6
+        if cfg.load_db_to_mem_cache_in_parallel:
+            import threading
+            threading.Thread(target=load_db_to_mem_cache, args=(node_db,),
+                             kwargs={"timeout_s": timeout_s}, daemon=True,
+                             name="loadDb2MemCache").start()
+        else:
+            n = load_db_to_mem_cache(node_db, timeout_s=timeout_s)
+            zklog.info(f"loadDb2MemCache: warmed {n} nodes")
+    if cfg.db_cache_synch_url and hasattr(node_db, "write_cache_only"):
+        from .services.hashdb_service import HashDBRemote
+        host, _, port = cfg.db_cache_synch_url.rpartition(":")
+        threads.append(CacheSynchThread(
+            node_db, HashDBRemote(host or "localhost", int(port))))
+        zklog.info(f"dbCacheSynch -> {cfg.db_cache_synch_url}")
+    return threads
+
+
+def cmd_run_services(cfg: Config, device: str = "cuda") -> int:
     """The services the config enables, until SIGINT.  As in the JAX
     package, the aggregator client drives ``ProverService({})``: a
-    service with no batch prover and no setup (ROADMAP queue 3)."""
-    if cfg.run_hashdb_server:
-        refuse_unported_state(cfg)
+    service with no batch prover and no setup (ROADMAP queue 3).  On
+    SIGINT the servers stop, then the state backend is closed: what was
+    flushed reaches its store."""
     from .executor.executor import Executor
     from .prover_service import ProverService
     from .services.executor_service import ExecutorServer, ExecutorServiceImpl
     from .state.hashdb import HashDB
 
     threads = []
+    backend = None
     if cfg.run_hashdb_server:
         from .services.hashdb_service import HashDBServer, HashDBServiceImpl
-        impl = HashDBServiceImpl(None)
+        backend = state_backend(cfg, device)
+        impl = HashDBServiceImpl(backend)
         server = HashDBServer(impl, cfg.hashdb_server_port).start()
         zklog.info(f"hashdb service listening on :{server.port} "
-                   "(backend=classic)")
+                   f"(backend={'hashdb64' if cfg.hashdb64 else 'classic'})")
         threads.append(server)
+        threads += start_state_services(cfg, getattr(impl.hashdb, "db",
+                                                     None))
     if cfg.run_executor_server:
         rom, ex_machine = _load_rom(None)
         # no AIR: the service only executes (Executor.__init__ would build
@@ -226,6 +268,8 @@ def cmd_run_services(cfg: Config) -> int:
     except KeyboardInterrupt:
         for t in threads:
             t.stop()
+        if backend is not None:
+            getattr(backend, "db", backend).close()
     return 0
 
 
@@ -279,15 +323,19 @@ _SELF_TESTS = {
     "run_mem_align_sm_test": ["tests/test_torch_zkevm_air.py"],
     "run_ecrecover_test": ["tests/test_torch_zkevm_executor.py"],
     "run_check_tree_test": ["tests/test_torch_state.py"],
+    "run_database_cache_test": ["tests/test_torch_db_caches.py"],
+    "run_database_performance_test": ["tests/test_torch_db_caches.py"],
+    "run_page_manager_test": ["tests/test_torch_state64.py"],
+    "run_key_value_tree_test": ["tests/test_torch_state64.py"],
+    "run_smt64_test": ["tests/test_torch_state64.py"],
     "run_hashdb_test": ["tests/test_torch_state.py",
-                        "tests/test_torch_entry_services.py"],
+                        "tests/test_torch_entry_services.py",
+                        "tests/test_torch_state64.py"],
     "run_unit_test": ["tests/test_torch_*.py"],
 }
-# the flags whose subject the port lacks (ROADMAP item 17, and the
-# BLAKE2b of the FFLONK transcript)
-_UNPORTED_TESTS = ("run_database_cache_test", "run_database_performance_test",
-                   "run_page_manager_test", "run_key_value_tree_test",
-                   "run_smt64_test", "run_blake_test")
+# the flags whose subject the port lacks (the BLAKE2b of the FFLONK
+# transcript)
+_UNPORTED_TESTS = ("run_blake_test",)
 
 
 def cmd_self_tests(cfg: Config) -> int:
@@ -299,7 +347,7 @@ def cmd_self_tests(cfg: Config) -> int:
     unported = [f for f in _UNPORTED_TESTS if getattr(cfg, f)]
     if unported:
         raise ValueError(f"self-tests {unported} test code that is not "
-                         "ported (ROADMAP item 17, ops/blake2b.py)")
+                         "ported (ops/blake2b.py)")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     targets = []
     for flag, mods in _SELF_TESTS.items():
@@ -381,7 +429,8 @@ def main(argv=None) -> int:
     ap.add_argument("--prove-toy", action="store_true")
     ap.add_argument("--run-services", action="store_true")
     ap.add_argument("--device", default="cuda",
-                    help="where proofs are made: cuda (default) or cpu")
+                    help="where proofs are made and the hashdb64 store "
+                         "hashes: cuda (default) or cpu")
     args = ap.parse_args(argv)
 
     cfg = Config.load(args.config).check()
@@ -406,7 +455,7 @@ def main(argv=None) -> int:
         return cmd_self_tests(cfg)
     if args.run_services or cfg.run_executor_server \
             or cfg.run_aggregator_client or cfg.run_hashdb_server:
-        return cmd_run_services(cfg)
+        return cmd_run_services(cfg, args.device)
     ap.print_help()
     return 1
 

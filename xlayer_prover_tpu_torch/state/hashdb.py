@@ -7,8 +7,9 @@ getProgram/flush/consolidate semantics) and the StateManager's
 batch -> block -> tx substate overlay with rollback on revert
 (src/hashdb/state_manager.hpp:16-70): uncommitted writes live in an
 overlay node store; consolidation writes through to the backing database;
-reverts discard substates.  The backing store is ``database.MemoryDB``:
-the JAX package's cached, SQL and file stores are not ported.
+reverts discard substates.  The backing store is any of ``database.py``'s
+(``MemoryDB`` by default; ``CachedDB`` over ``SqlDB`` or
+``postgres.PostgresDB`` where the config names a databaseURL).
 """
 
 from __future__ import annotations
